@@ -4,7 +4,10 @@
 as JAX arrays) into the port's tensors on a device and dtype;
 ``force_from_jax`` builds a port ``ADMPPmeForce`` that copies an admp_tpu
 force object's kappa, K1..K3 and configuration, so the two packages compute
-the same thing. Neither imports JAX.
+the same thing. ``convert_params`` and ``adam_state_from_optax`` carry a fit
+across: a parameter dict, and the moments and step count of optax's Adam
+(``ScaleByAdamState``) as the state of ``torch.optim.Adam``. None of them
+imports JAX or optax.
 """
 
 from __future__ import annotations
@@ -23,6 +26,13 @@ INDEX_FIELDS = ("axis_types", "axis_indices", "covalent_map", "pairs")
 SCALAR_FIELDS = {"kappa": float, "K1": int, "K2": int, "K3": int}
 
 
+def _copy(a, device, dtype):
+    """A tensor that owns a copy of ``a``: torch.as_tensor would share the
+    buffer of a float64 numpy or JAX array, and an in-place optimizer step
+    would then write into the other package's arrays."""
+    return torch.tensor(np.array(a, dtype=np.float64), device=device).to(dtype)
+
+
 def convert_state(device="cpu", dtype=torch.float64, **arrays):
     """Convert admp_tpu arrays to port tensors.
 
@@ -36,8 +46,7 @@ def convert_state(device="cpu", dtype=torch.float64, **arrays):
         if name in SCALAR_FIELDS:
             out[name] = SCALAR_FIELDS[name](np.asarray(value))
         elif name in FLOAT_FIELDS:
-            out[name] = torch.as_tensor(np.asarray(value, dtype=np.float64),
-                                        device=device).to(dtype)
+            out[name] = _copy(value, device, dtype)
         elif name in INDEX_FIELDS:
             out[name] = torch.as_tensor(np.asarray(value).astype(np.int64),
                                         device=device)
@@ -87,3 +96,25 @@ def force_from_jax(jax_force, box, device="cpu", dtype=torch.float64,
                                     int(jax_force.K3))
     force.refresh_calculators()
     return force
+
+
+def convert_params(params, device="cpu", dtype=torch.float64):
+    """A parameter dict of arrays -> leaf tensors that require grad, the
+    form fitting.fit and a torch.optim optimizer take."""
+    return {k: _copy(v, device, dtype).requires_grad_(True)
+            for k, v in params.items()}
+
+
+def adam_state_from_optax(mu, nu, count, params):
+    """The ``torch.optim.Adam`` state of the tensors in ``params`` (a dict)
+    from optax's ``ScaleByAdamState``: ``mu`` and ``nu`` are dicts of arrays
+    with the same keys, ``count`` the step count. Returns {tensor: state};
+    ``optimizer.state.update(...)`` installs it. optax's update
+    m / (1 - b1^t) / (sqrt(v / (1 - b2^t)) + eps) is torch's for the same
+    moments and step."""
+    step = torch.tensor(float(np.asarray(count)),
+                        dtype=torch.get_default_dtype())
+    return {p: {"step": step.clone(),
+                "exp_avg": _copy(mu[k], p.device, p.dtype),
+                "exp_avg_sq": _copy(nu[k], p.device, p.dtype)}
+            for k, p in params.items()}

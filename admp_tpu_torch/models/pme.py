@@ -12,8 +12,14 @@ The polarizable step follows admp_tpu's Feynman-Hellmann (FH) path
 detached inputs with no graph kept, warm-started PCG whose every matvec is
 one ``torch.autograd.grad`` of the u-quadratic energy with respect to v, and
 the final energy evaluated at a detached u* and differentiated with respect
-to the positions. With ``exact_adjoint=True`` (plain path only) u* carries the
-implicit-function adjoint of scf/solver.ImplicitSolve instead.
+to the positions. With ``exact_adjoint=True`` (the default ``SCFConfig()``,
+the fitting profile) u* carries the implicit-function adjoint of
+scf/solver.ImplicitSolve instead, on the plain path and on the kernels alike:
+r0 = -field(u0) keeps its graph, so the backward differentiates the pair
+kernel's backward (K3 for ``'pol'``), and the adjoint differentiates the
+matvec with respect to its parameters (K3 for ``'uu'``). Gradients with
+respect to Q_local, pol, tholes, mScales and pScales flow through
+``get_energy`` on either path.
 """
 
 from __future__ import annotations
@@ -243,12 +249,6 @@ class ADMPPmeForce:
         self.kappa = kappa
         self.K1, self.K2, self.K3 = k1, k2, k3
         self.scf_config = self.config.scf
-        if (self.lpol and self.scf_config.exact_adjoint
-                and self._pair_kernel_active()):
-            raise NotImplementedError(
-                "SCFConfig.exact_adjoint=True on the CUDA pair-kernel path is "
-                "not implemented in admp_tpu_torch yet (ROADMAP.md queue 1, "
-                "S2): use SCFConfig.md() or pair_kernel='torch'")
         self._static_box = (self._float(box_np) if self.config.cache_influence
                             else None)
         self.U_ind = torch.zeros((self.n_atoms, 3), device=self.device,
@@ -275,11 +275,6 @@ class ADMPPmeForce:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.array(x))
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
-
-    def _pair_kernel_active(self) -> bool:
-        pk = self.config.pair_kernel
-        return pk == "cuda" or (pk == "auto" and self.device.type == "cuda"
-                                and self.dtype == torch.float32)
 
     def _accept_pairs(self, pairs):
         """A NeighborList is unwrapped to its pair tensor; the pair order

@@ -2,8 +2,9 @@
 
 Each source in ``admp_tpu_torch/csrc`` is compiled by ``nvcc`` into a shared
 library with a plain C interface, at first use, into
-``admp_tpu_torch/_build/`` under a name keyed by a hash of the source and the
-flags, and loaded with ``ctypes``. Nothing is built when a module is
+``admp_tpu_torch/_build/`` under a name keyed by a hash of the source, the
+headers beside it (``csrc/*.cuh``) and the flags, and loaded with
+``ctypes``. Nothing is built when a module is
 imported, so the package imports on machines without ``nvcc`` or a GPU.
 """
 
@@ -39,7 +40,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
@@ -57,7 +60,7 @@ def _start_build(name: str):
     return proc, tmp, out
 
 
-def build(names=("pairs", "spread")) -> dict[str, str]:
+def build(names=("pairs", "pair_hvp", "spread")) -> dict[str, str]:
     """Compile the named sources concurrently (skipping those already built)
     and return the compiler output of each build that ran (``-Xptxas -v``
     lists every kernel's registers, shared memory and spills). Raises on a

@@ -16,13 +16,20 @@ starting residual). ``pcg_fixed`` runs a fixed count with no sync.
 (admp_tpu/scf/solver.py:169-250): given the cotangent g of u*, it solves
 A w = g and propagates w into r0 and -vjp_theta[A(theta)(u* - u0)](w) into
 the parameters theta. Its backward differentiates the matvec once more, so it
-needs a twice-differentiable matvec (the plain path; the pair kernel is
-first-order).
+needs a twice-differentiable matvec: the plain path, or the pair kernel with
+its Hessian-vector backward (ops/cuda/pairs.PairBwdFn).
+
+The backward itself is ``once_differentiable``: differentiating it again (a
+force-matching loss on an exact-adjoint polarizable energy) raises. Its
+adjoint solve is a host-checked loop whose iterates carry no graph back to
+theta, so a third derivative through it would come out incomplete; admp_tpu
+refuses it too (reverse mode through its ``lax.while_loop``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from admp_tpu_torch.settings import SCFConfig
 from admp_tpu_torch.utils.constants import DIELECTRIC
@@ -146,6 +153,7 @@ class ImplicitSolve(torch.autograd.Function):
         return u
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         u_star, u0, pol, *theta = ctx.saved_tensors
         diag, _ = preconditioner(pol, ctx.config)

@@ -42,11 +42,12 @@ class SCFConfig:
     """Induced-dipole solver configuration (admp_tpu/settings.py:71-166).
 
     The port implements warm-started PCG with the Jacobi preconditioner,
-    ``fixed_iters``, Feynman-Hellmann gradients (``exact_adjoint=False``) and
-    the reduced-cost matvec mesh (``matvec_spread_order``,
-    ``matvec_grid_div``). ``exact_adjoint=True`` is accepted here and checked
-    where the force object knows whether it runs the kernels
-    (models/pme.ADMPPmeForce).
+    ``fixed_iters``, the exact implicit-function adjoint
+    (``exact_adjoint=True``, with ``adjoint_tol`` and
+    ``adjoint_fixed_iters``), Feynman-Hellmann gradients
+    (``exact_adjoint=False``) and the reduced-cost matvec mesh
+    (``matvec_spread_order``, ``matvec_grid_div``), on the plain path and on
+    the CUDA kernels alike.
     """
 
     method: str = "pcg"

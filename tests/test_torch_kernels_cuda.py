@@ -8,8 +8,13 @@ installed; tests/conftest.py imports JAX, hence on the GPU machine:
 
 Tolerances (float32 on the card): pair energies 1e-5 relative per pair with
 an absolute floor of 1e-6 max|e| (a pair's rounding follows its largest
-term), pair gradients 1e-5 relative RMSE, the spread 1e-5 max|mesh| (atomic
-summation order), the gather bit for bit.
+term), pair gradients 1e-5 relative RMSE, the pair HVP (K3) within
+max(1e-4, 2 x the plain float32 version's) relative RMSE of the plain
+version in float64 (second derivatives in float32 have a floor of their own;
+P.hvp_directions keeps the direction off the Thole parameters of
+zero-polarizability sites, where float32 keeps no digit), a central
+difference of K2 within 1e-2, the spread 1e-5 max|mesh| (atomic summation
+order), the gather bit for bit.
 """
 
 import numpy as np
@@ -102,13 +107,70 @@ def test_pair_kernels_match_plain(dev, kind, lmax):
         assert _rel(a, b) < 1e-5, (name, _rel(a, b))
 
 
-def test_pair_kernel_autograd_is_first_order(dev):
-    g_i, g_j, scl, scal, _ = _tables(dev, "perm", 2)
-    g = g_i.clone().requires_grad_(True)
-    e = P.pair_energies(g, g_j, scl, scal, 2, "perm").sum()
-    (d,) = torch.autograd.grad(e, g, create_graph=True)
+def _directions(tables, seed, kind):
+    """Random directions for the four inputs for a finite difference: zero on
+    the mask row, scaled down on the box inverse so that no pair's
+    fractional coordinate crosses the wrap, and for the Thole kinds zero on
+    the pol and thole columns (the zero-pol floor) and the scale rows (the
+    1e-5-wide pscale sigmoid)."""
+    rng = np.random.default_rng(seed)
+    out = [torch.tensor(rng.standard_normal(t.shape), device=t.device,
+                        dtype=torch.float32) for t in tables]
+    out[2][1] = 0.0
+    out[3][10:] *= 1e-2  # the box inverse is ~1/12 of the box's entries
+    if kind != "perm":
+        for c in out[:2]:
+            c[:, -2:] = 0.0
+        out[2].zero_()
+    return out
+
+
+@pytest.mark.parametrize("kind,lmax", [("perm", 2), ("pol", 2), ("uu", 1)])
+def test_pair_kernel_autograd_is_first_order(dev, kind, lmax):
+    """The pair kernels' autograd: the backward's backward (K3) matches the
+    plain version, agrees with a central difference of the backward (K2),
+    and is itself first order (a third derivative raises)."""
+    g_i, g_j, scl, scal, ct = _tables(dev, kind, lmax)
+    cs = P.hvp_directions((g_i, g_j, scl, scal), kind, seed=5)
+    out_k = P.launch_pair_hvp(g_i, g_j, scl, scal, ct, *cs, lmax, kind)
+    out_64 = P.pair_hvp_torch(*(t.double() for t in (g_i, g_j, scl, scal, ct)),
+                              *(c.double() for c in cs), lmax, kind)
+    out_32 = P.pair_hvp_torch(g_i, g_j, scl, scal, ct, *cs, lmax, kind)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("g_i", "g_j", "scl", "scal", "ct"), out_k,
+                             out_32, out_64):
+        assert bool(torch.isfinite(a).all()), name
+        tol = max(1e-4, 2 * _rel(b, c))
+        assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
+
+    # <K3(c), v> = d/dt <K2(x + t v), c>: central differences of K2 at
+    # steps h and h/2, Richardson-extrapolated (error O(h^4))
+    x = (g_i, g_j, scl, scal)
+    v = _directions(x, 6, kind)
+
+    def phi(t):
+        outs = P.launch_pair_bwd(*(a + t * b for a, b in zip(x, v)), ct,
+                                 lmax, kind)
+        return sum(float((o.double() * c.double()).sum())
+                   for o, c in zip(outs, cs))
+
+    h = 4e-3
+    d1 = (phi(h) - phi(-h)) / (2 * h)
+    d2 = (phi(h / 2) - phi(-h / 2)) / h
+    fd = (4 * d2 - d1) / 3
+    an = sum(float((o.double() * d.double()).sum())
+             for o, d in zip(out_k[:4], v))
+    assert abs(fd - an) <= 1e-2 * abs(an), (fd, an)
+
+    leaves = [t.clone().requires_grad_(True) for t in x]
+    e = P.pair_energies(*leaves, lmax, kind, method="cuda")
+    grads = torch.autograd.grad((e * ct).sum(), leaves, create_graph=True)
+    hvp = torch.autograd.grad(sum((g * c).sum() for g, c in zip(grads, cs)),
+                              leaves, create_graph=True)
+    for a, b in zip(hvp, out_k[:4]):
+        assert torch.equal(a, b)
     with pytest.raises(RuntimeError):
-        torch.autograd.grad(d.sum(), g)
+        torch.autograd.grad(hvp[0].sum(), leaves[0])
 
 
 @pytest.mark.parametrize("order,channels", [(6, 1), (4, 1), (6, 3)])
@@ -169,3 +231,31 @@ def test_force_step_kernels_match_plain(dev):
     assert n_k == n_p
     assert abs(float(e_k) - float(e_p)) <= 1e-5 * abs(float(e_p))
     assert _rel(g_k, g_p) < 1e-4
+
+
+def test_exact_adjoint_step_kernels_match_plain(dev):
+    """The default SCFConfig() (exact adjoint) on the kernels: K3 runs, and
+    the forces and the parameter gradients match the plain path."""
+    s, pos, box, q, _, pairs = _system(dev)
+    f = lambda x: torch.tensor(x, device=dev, dtype=torch.float32)  # noqa: E731
+    sc = f([0.0, 0.0, 0.0, 1.0, 1.0])
+    out = {}
+    for method in ("auto", "torch"):
+        cfg = EngineConfig(cache_influence=True, pair_kernel=method,
+                           spread_method=method)
+        force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                             s["covalent_map"], 4.0, 1e-4, 2, lpol=True,
+                             config=cfg, device=dev)
+        params = [t.clone().requires_grad_(True)
+                  for t in (q, f(s["pol"]), f(s["tholes"]))]
+        before = P.launch_pair_hvp.launches
+        e, g = force.get_forces(pos, box, pairs, *params, sc, sc, sc)
+        energy = force.get_energy(pos, box, pairs, *params, sc, sc, sc)
+        grads = torch.autograd.grad(energy, params)
+        assert (P.launch_pair_hvp.launches > before) == (method == "auto")
+        out[method] = (e, g, grads)
+    (e_k, g_k, p_k), (e_p, g_p, p_p) = out["auto"], out["torch"]
+    assert abs(float(e_k) - float(e_p)) <= 1e-5 * abs(float(e_p))
+    assert _rel(g_k, g_p) < 2e-4
+    for a, b in zip(p_k, p_p):
+        assert _rel(a, b) < 1e-3

@@ -165,8 +165,11 @@ def test_unimplemented_options_raise():
         SCFConfig(method="jacobi")
     with pytest.raises(ValueError):
         EngineConfig(pair_kernel="pallas")
-    s = water(n_side=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
-                     s["covalent_map"], RC, ETHRESH, 2, lpol=True,
-                     config=EngineConfig(pair_kernel="cuda"))
+        SCFConfig(adjoint_warmstart=True)
+    # the exact adjoint (default SCFConfig()) on the kernel path is ported
+    s = water(n_side=2)
+    force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                         s["covalent_map"], RC, ETHRESH, 2, lpol=True,
+                         config=EngineConfig(pair_kernel="cuda"))
+    assert force.scf_config.exact_adjoint

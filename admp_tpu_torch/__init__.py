@@ -1,33 +1,67 @@
 """admp_tpu_torch: the PyTorch/CUDA port of admp_tpu for one NVIDIA H100.
 
 It runs the multipolar PME energy+force step, fixed or with Thole-polarizable
-induced dipoles (Feynman-Hellmann or exact implicit-adjoint gradients), and
-force-field fitting (fitting.py, checkpoint.py), with its pair, spread and
-gather stages on hand-written CUDA kernels (ops/cuda, sources in csrc/) for
-float32 tensors on the card, and on plain PyTorch elsewhere. admp_tpu (JAX) is the reference it is held against;
-this package never imports JAX.
+induced dipoles (Feynman-Hellmann or exact implicit-adjoint gradients), the
+full force field of dispersion PME (C6/C8/C10) and Tang-Toennies short range
+beside it, dense and cell neighbor lists, and force-field fitting
+(fitting.py, checkpoint.py), with its pair, spread and gather stages on
+hand-written CUDA kernels (ops/cuda, sources in csrc/) for float32 tensors on
+the card, and on plain PyTorch elsewhere. The entry points work on the card
+unless the caller asks for the CPU. admp_tpu (JAX) is the reference it is
+held against; this package never imports JAX.
 """
 
 from admp_tpu_torch.settings import EngineConfig, SCFConfig
 from admp_tpu_torch.ops.harmonics import convert_cart2harm
-from admp_tpu_torch.ops.neighborlist import NeighborList, neighbor_list_dense
-from admp_tpu_torch.models.pme import ADMPPmeForce
+from admp_tpu_torch.ops.neighborlist import (
+    NeighborList,
+    neighbor_list_cell,
+    neighbor_list_dense,
+    refresh_neighbor_list,
+    update_neighbor_list,
+)
+from admp_tpu_torch.ops.shortrange import (
+    distribute_dispcoeff,
+    distribute_multipoles,
+    distribute_scalar,
+    distribute_v3,
+    generate_pairwise_interaction,
+    tt_damping_qq_c6_kernel,
+)
+from admp_tpu_torch.models.dispersion import ADMPDispPmeForce, energy_disp_pme
+from admp_tpu_torch.models.pme import ADMPPmeForce, energy_pme
 from admp_tpu_torch.systems import water_system
 from admp_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
 from admp_tpu_torch.fitting import FitResult, energy_force_loss, fit, stack_batch
 
+# the reference's name (admp/pairwise.py:94)
+TT_damping_qq_c6_kernel = tt_damping_qq_c6_kernel
+
 __all__ = [
+    "ADMPDispPmeForce",
     "ADMPPmeForce",
     "EngineConfig",
     "FitResult",
     "NeighborList",
     "SCFConfig",
+    "TT_damping_qq_c6_kernel",
     "convert_cart2harm",
+    "distribute_dispcoeff",
+    "distribute_multipoles",
+    "distribute_scalar",
+    "distribute_v3",
+    "energy_disp_pme",
     "energy_force_loss",
+    "energy_pme",
     "fit",
+    "generate_pairwise_interaction",
+    "neighbor_list_cell",
     "neighbor_list_dense",
+    "refresh_neighbor_list",
     "restore_checkpoint",
     "save_checkpoint",
     "stack_batch",
+    "tt_damping_qq_c6_kernel",
+    "update_neighbor_list",
     "water_system",
 ]

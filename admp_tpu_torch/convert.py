@@ -2,12 +2,14 @@
 
 ``convert_state`` turns arrays (numpy, or anything ``np.asarray`` reads, such
 as JAX arrays) into the port's tensors on a device and dtype;
-``force_from_jax`` builds a port ``ADMPPmeForce`` that copies an admp_tpu
-force object's kappa, K1..K3 and configuration, so the two packages compute
-the same thing. ``convert_params`` and ``adam_state_from_optax`` carry a fit
-across: a parameter dict, and the moments and step count of optax's Adam
+``force_from_jax`` and ``disp_force_from_jax`` build a port ``ADMPPmeForce``
+or ``ADMPDispPmeForce`` that copies an admp_tpu force object's kappa, K1..K3,
+pmax and configuration, so the two packages compute the same thing.
+``convert_params`` and ``adam_state_from_optax`` carry a fit across: a
+parameter dict, and the moments and step count of optax's Adam
 (``ScaleByAdamState``) as the state of ``torch.optim.Adam``. None of them
-imports JAX or optax.
+imports JAX or optax. Every array is copied, and everything lands on the card
+unless the caller asks for the CPU (``device='cpu'``).
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from admp_tpu_torch.models.dispersion import ADMPDispPmeForce
 from admp_tpu_torch.models.pme import ADMPPmeForce
+from admp_tpu_torch.ops.cuda import resolve_device
 from admp_tpu_torch.settings import EngineConfig, SCFConfig
 
 FLOAT_FIELDS = ("positions", "box", "q_local", "pol", "tholes", "m_scales",
-                "p_scales", "d_scales", "u_ind")
+                "p_scales", "d_scales", "u_ind", "c_list", "tt_a", "tt_b",
+                "tt_q")
 INDEX_FIELDS = ("axis_types", "axis_indices", "covalent_map", "pairs")
 SCALAR_FIELDS = {"kappa": float, "K1": int, "K2": int, "K3": int}
 
@@ -33,14 +38,17 @@ def _copy(a, device, dtype):
     return torch.tensor(np.array(a, dtype=np.float64), device=device).to(dtype)
 
 
-def convert_state(device="cpu", dtype=torch.float64, **arrays):
+def convert_state(device="cuda", dtype=torch.float64, **arrays):
     """Convert admp_tpu arrays to port tensors.
 
     Float fields (positions, box, q_local harmonics, pol, tholes, m/p/d
-    scales, u_ind) become ``dtype`` tensors; index fields (axis_types,
-    axis_indices, covalent_map, pairs) become int64 tensors; kappa and
-    K1..K3 become Python numbers. Returns a dict with the same keys.
+    scales, u_ind, the dispersion coefficients c_list and the Tang-Toennies
+    tt_a, tt_b, tt_q) become ``dtype`` tensors that own their memory; index
+    fields (axis_types, axis_indices, covalent_map, pairs) become int64
+    tensors; kappa and K1..K3 become Python numbers. Returns a dict with the
+    same keys.
     """
+    device = resolve_device(device)
     out = {}
     for name, value in arrays.items():
         if name in SCALAR_FIELDS:
@@ -57,6 +65,22 @@ def convert_state(device="cpu", dtype=torch.float64, **arrays):
     return out
 
 
+def _engine_config(src_cfg, overrides):
+    """The port's EngineConfig (with its SCFConfig) holding the fields that
+    admp_tpu's config ``src_cfg`` shares with it, then ``overrides`` by name.
+    ``pair_kernel`` and ``spread_method`` take admp_tpu-only values there
+    ('xla', 'pallas', ...), so they stay at the port's ``'auto'`` unless
+    overridden."""
+    scf_names = {f.name for f in dataclasses.fields(SCFConfig)}
+    scf_over = {k: v for k, v in overrides.items() if k in scf_names}
+    eng_over = {k: v for k, v in overrides.items() if k not in scf_names}
+    eng_over.setdefault("pair_kernel", "auto")
+    eng_over.setdefault("spread_method", "auto")
+    scf = SCFConfig(**_copy_fields(SCFConfig, src_cfg.scf, scf_over))
+    return EngineConfig(scf=scf, **_copy_fields(EngineConfig, src_cfg,
+                                                eng_over))
+
+
 def _copy_fields(cls, source, overrides):
     """An instance of the frozen dataclass ``cls`` with the fields that
     ``source`` (an admp_tpu config) shares by name, then ``overrides``."""
@@ -69,23 +93,13 @@ def _copy_fields(cls, source, overrides):
     return kw
 
 
-def force_from_jax(jax_force, box, device="cpu", dtype=torch.float64,
+def force_from_jax(jax_force, box, device="cuda", dtype=torch.float64,
                    **overrides):
     """A port ADMPPmeForce equivalent to the admp_tpu force ``jax_force``:
     same axis data, covalent map, cutoff, lmax, lpol, kappa, K1..K3 and the
-    configuration fields both packages have. ``pair_kernel`` and
-    ``spread_method`` take admp_tpu-only values there ('xla', 'pallas', ...),
-    so they stay at the port's ``'auto'`` unless given in ``overrides``;
-    other overrides replace EngineConfig or SCFConfig fields by name."""
-    src_cfg = jax_force.config
-    scf_names = {f.name for f in dataclasses.fields(SCFConfig)}
-    scf_over = {k: v for k, v in overrides.items() if k in scf_names}
-    eng_over = {k: v for k, v in overrides.items() if k not in scf_names}
-    eng_over.setdefault("pair_kernel", "auto")
-    eng_over.setdefault("spread_method", "auto")
-    scf = SCFConfig(**_copy_fields(SCFConfig, src_cfg.scf, scf_over))
-    config = EngineConfig(scf=scf,
-                          **_copy_fields(EngineConfig, src_cfg, eng_over))
+    configuration fields both packages have (``_engine_config``); overrides
+    replace EngineConfig or SCFConfig fields by name."""
+    config = _engine_config(jax_force.config, overrides)
     force = ADMPPmeForce(
         np.asarray(box), np.asarray(jax_force.axis_type),
         np.asarray(jax_force.axis_indices), np.asarray(jax_force.covalent_map),
@@ -98,9 +112,29 @@ def force_from_jax(jax_force, box, device="cpu", dtype=torch.float64,
     return force
 
 
-def convert_params(params, device="cpu", dtype=torch.float64):
+def disp_force_from_jax(jax_force, box, device="cuda", dtype=torch.float64,
+                        **overrides):
+    """A port ADMPDispPmeForce equivalent to the admp_tpu dispersion force
+    ``jax_force``: same covalent map (dense), cutoff, pmax, kappa, K1..K3
+    and the configuration fields both packages have (pmax_recip,
+    disp_ethresh, disp_spread_order, cache_influence, ...); overrides
+    replace EngineConfig fields by name."""
+    force = ADMPDispPmeForce(
+        np.asarray(box), np.asarray(jax_force.covalent_map), jax_force.rc,
+        jax_force.ethresh, jax_force.pmax,
+        config=_engine_config(jax_force.config, overrides), device=device,
+        dtype=dtype)
+    force.kappa = float(jax_force.kappa)
+    force.K1, force.K2, force.K3 = (int(jax_force.K1), int(jax_force.K2),
+                                    int(jax_force.K3))
+    force.refresh_calculators()
+    return force
+
+
+def convert_params(params, device="cuda", dtype=torch.float64):
     """A parameter dict of arrays -> leaf tensors that require grad, the
     form fitting.fit and a torch.optim optimizer take."""
+    device = resolve_device(device)
     return {k: _copy(v, device, dtype).requires_grad_(True)
             for k, v in params.items()}
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from admp_tpu_torch.ops import realspace
-from admp_tpu_torch.ops.cuda import use_kernel
+from admp_tpu_torch.ops.cuda import resolve_device, use_kernel
 from admp_tpu_torch.ops.cuda.pairs import pair_energies
 from admp_tpu_torch.ops.ewald import (
     lane_align_k3,
@@ -220,15 +220,17 @@ class ADMPPmeForce:
     """Multipolar PME calculator with admp_tpu's public surface.
 
     ``device`` and ``dtype`` say where and in what type the force works;
-    inputs are moved there. The kernels run for ``dtype=torch.float32`` on a
+    inputs are moved there. The default is the card: without one the
+    constructor raises, and the CPU is taken only when asked for
+    (``device='cpu'``). The kernels run for ``dtype=torch.float32`` on a
     CUDA device (EngineConfig.pair_kernel / spread_method ``'auto'``).
     """
 
     def __init__(self, box, axis_type, axis_indices, covalent_map, rc,
                  ethresh, lmax, lpol=False, config: EngineConfig | None = None,
-                 device="cpu", dtype=torch.float32):
+                 device="cuda", dtype=torch.float32):
         self.config = config or EngineConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         box_np = np.asarray(box.detach().cpu() if torch.is_tensor(box) else box,
                             dtype=np.float64)

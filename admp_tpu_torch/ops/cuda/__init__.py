@@ -8,6 +8,18 @@ import torch
 METHODS = ("auto", "cuda", "torch")
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point works on. The entry points default to
+    ``'cuda'``; without a CUDA device that raises here, and the caller must
+    ask for the CPU by name: there is no silent fallback."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but no CUDA device is available; pass "
+            "device='cpu' to run on the CPU")
+    return device
+
+
 def use_kernel(method: str, x: torch.Tensor, what: str) -> bool:
     """Dispatch rule shared by every kernel wrapper.
 

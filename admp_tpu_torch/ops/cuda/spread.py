@@ -17,6 +17,11 @@ stays in L2.
 ``SpreadFn`` and ``GatherFn`` are each other's backward, as admp_tpu pairs
 its custom_vjps (spread.py:1343-1397), so derivatives of any order stay on
 the kernels.
+
+The port's paths run them at (order 6, C=1) for the electrostatic energy
+mesh and at (order 4 or 6, C=3) for the dispersion C6/C8/C10 mesh
+(admp_tpu's ``spread_blocks_multi`` :629); ``launch_spread.by_shape`` and
+``launch_gather.by_shape`` count the launches per (order, C).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from admp_tpu_torch.ops.cuda import build, use_kernel
 
 ORDERS = (4, 6)
 CHANNELS = (1, 3)
+SHAPES = tuple((o, c) for o in ORDERS for c in CHANNELS)
 
 
 # ---------------------------------------------------------------------------
@@ -121,10 +127,12 @@ def launch_spread(m_u0, q_points, grid_shape, order: int):
         *grid_shape, torch.cuda.current_stream(mesh.device).cuda_stream)
     build.check(status, f"spread (order {order}, {n_ch} channels)")
     launch_spread.launches += 1
+    launch_spread.by_shape[order, n_ch] += 1
     return mesh
 
 
 launch_spread.launches = 0
+launch_spread.by_shape = dict.fromkeys(SHAPES, 0)  # launches per (order, C)
 
 
 def launch_gather(m_u0, mesh, grid_shape, order: int):
@@ -144,10 +152,12 @@ def launch_gather(m_u0, mesh, grid_shape, order: int):
         *grid_shape, torch.cuda.current_stream(mesh.device).cuda_stream)
     build.check(status, f"gather (order {order}, {n_ch} channels)")
     launch_gather.launches += 1
+    launch_gather.by_shape[order, n_ch] += 1
     return out
 
 
 launch_gather.launches = 0
+launch_gather.by_shape = dict.fromkeys(SHAPES, 0)  # launches per (order, C)
 
 
 class SpreadFn(torch.autograd.Function):

@@ -1,9 +1,13 @@
-"""Fixed-capacity dense neighbor list (admp_tpu/ops/neighborlist.py, dense
-strategy). The cell list waits (ROADMAP.md queue 1, S1); at a few thousand
-atoms the O(N^2) mask is cheap on the card.
+"""Fixed-capacity neighbor lists (admp_tpu/ops/neighborlist.py): the dense
+O(N^2) list and the cell list, on the positions' device.
 
-Pairs are an (C, 2) int64 tensor, padded with (n, n), sorted by their i
-column (the upper-triangle mask is compacted in row-major order).
+Pairs are an (C, 2) int64 tensor, (i, j) with i < j for real entries and
+padded with (n, n). Both strategies emit i-sorted lists (non-decreasing i,
+padding last; ``NeighborList.i_sorted``). The cell list takes admp_tpu's
+adopted methods as its code: candidates from a per-cell neighbourhood table
+(admp_tpu's ``CAND_METHOD='cell'``) and the two-stage compaction with a
+per-row sort (``COMPACT_METHOD='sort'``); the module-level switches between
+them and the branches that lost their A/B are not ported.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 
+import numpy as np
 import torch
 
 from admp_tpu_torch.utils.linalg3 import inv3x3
@@ -19,13 +24,18 @@ from admp_tpu_torch.utils.linalg3 import inv3x3
 @dataclasses.dataclass
 class NeighborList:
     """``pairs[k] = (i, j)`` with i < j for real entries and (n, n) for
-    padding; ``did_overflow`` is a bool tensor that says the capacity was
-    exceeded and the list must be reallocated."""
+    padding; ``did_overflow`` is a bool tensor that says a capacity was
+    exceeded and the list must be reallocated. ``i_sorted``: the i column
+    is non-decreasing. A cell list also keeps its cell grid ``n_cells``
+    and per-cell capacity ``cell_capacity`` (None for a dense list)."""
 
     pairs: torch.Tensor
     did_overflow: torch.Tensor
     capacity: int
     cutoff: float
+    i_sorted: bool = False
+    n_cells: tuple | None = None
+    cell_capacity: int | None = None
 
 
 def _dense_pairs(positions, box, cutoff, capacity):
@@ -66,4 +76,244 @@ def neighbor_list_dense(positions, box, cutoff, capacity=None, padding=1.25):
             _, _, n_real = _dense_pairs(positions, box, cutoff, 0)
             capacity = int(-(-int(n_real * padding) // 1024) * 1024)
         pairs, overflow, _ = _dense_pairs(positions, box, cutoff, capacity)
-    return NeighborList(pairs, overflow, capacity, float(cutoff))
+    return NeighborList(pairs, overflow, capacity, float(cutoff),
+                        i_sorted=True)
+
+
+def update_neighbor_list(nlist: NeighborList, positions, box):
+    """The dense list again at its fixed capacity (check ``did_overflow``)."""
+    with torch.no_grad():
+        pairs, overflow, _ = _dense_pairs(positions, box, nlist.cutoff,
+                                          nlist.capacity)
+    return NeighborList(pairs, overflow, nlist.capacity, nlist.cutoff,
+                        i_sorted=True)
+
+
+def refresh_neighbor_list(nlist: NeighborList, positions, box):
+    """Refresh a dense or cell list and never hand back a truncated one:
+    rebuild at the stored capacities, and allocate anew when a capacity
+    overflows or, for a cell list, when the box moved the cell grid."""
+    if nlist.n_cells is None:
+        nl = update_neighbor_list(nlist, positions, box)
+        if bool(nl.did_overflow):
+            return neighbor_list_dense(positions, box, nlist.cutoff)
+        return nl
+    if _cell_grid(box, nlist.cutoff) != tuple(nlist.n_cells):
+        return neighbor_list_cell(positions, box, nlist.cutoff,
+                                  sort_i=nlist.i_sorted)
+    with torch.no_grad():
+        pairs, overflow = _cell_pairs(positions, box, nlist.cutoff,
+                                      nlist.n_cells, nlist.cell_capacity,
+                                      nlist.capacity, nlist.i_sorted)
+    if bool(overflow):
+        return neighbor_list_cell(positions, box, nlist.cutoff,
+                                  sort_i=nlist.i_sorted)
+    return dataclasses.replace(nlist, pairs=pairs, did_overflow=overflow)
+
+
+# ---------------------------------------------------------------------------
+# cell list
+# ---------------------------------------------------------------------------
+
+
+def _cell_grid(box, cutoff):
+    """Cells per axis, each at least ``cutoff`` wide."""
+    lengths = np.abs(np.diag(np.asarray(
+        box.detach().cpu() if torch.is_tensor(box) else box, np.float64)))
+    return tuple(int(c) for c in np.maximum((lengths // cutoff).astype(int), 1))
+
+
+# The half stencil: the own cell (slot 0, deduplicated by i < j) and the 13
+# displacements with (dx, dy, dz) lexicographically positive. Under the
+# periodic wrap with >= 3 cells per axis each unordered cell pair is visited
+# once, so every combination across two cells is a distinct pair.
+_HALF_STENCIL = np.array(
+    [[0, 0, 0]] + [[dx, dy, dz] for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                   for dz in (-1, 0, 1) if (dx, dy, dz) > (0, 0, 0)],
+    dtype=np.int64)  # (14, 3)
+
+# per-row partner capacity of the two-stage compaction (water at rc = 4 has
+# ~13 half-neighbours per atom on average and ~40 at most; overflow is
+# reported)
+_ROW_K = 64
+
+
+def _cell_ids(positions, box, n_cells):
+    ncx, ncy, ncz = n_cells
+    frac = positions @ inv3x3(box)
+    frac = frac - torch.floor(frac)
+    cx = torch.clamp((frac[:, 0] * ncx).long(), max=ncx - 1)
+    cy = torch.clamp((frac[:, 1] * ncy).long(), max=ncy - 1)
+    cz = torch.clamp((frac[:, 2] * ncz).long(), max=ncz - 1)
+    return (cx * ncy + cy) * ncz + cz
+
+
+def _cell_candidates(positions, box, cutoff, n_cells, cell_capacity):
+    """(good, cand, bucket_overflow): the (n, 14 cell_capacity) candidate
+    partners of every atom from the half stencil and the mask of those that
+    are real in-cutoff pairs, each counted once.
+
+    Atoms are sorted into cell order; each cell's window of the sorted arrays
+    fills one row of an id table and a coordinate table, and every cell
+    gathers its 14 stencil rows once, so an atom takes one wide row of its
+    cell."""
+    n = positions.shape[0]
+    dev = positions.device
+    ncx, ncy, ncz = n_cells
+    n_cell_total = ncx * ncy * ncz
+    box_inv = inv3x3(box)
+    cell_id = _cell_ids(positions, box, n_cells)
+    order = torch.argsort(cell_id, stable=True)
+    sorted_cells = cell_id[order]
+    c_iota = torch.arange(n_cell_total, device=dev)
+    starts = torch.searchsorted(sorted_cells, c_iota)
+    counts = torch.searchsorted(sorted_cells, c_iota + 1) - starts
+    bucket_overflow = torch.any(counts > cell_capacity)
+    slots = torch.arange(cell_capacity, device=dev)
+    take = torch.clamp(starts[:, None] + slots[None], max=n - 1)
+    # slots past a cell's count alias the next cells' atoms: id n drops them
+    ids = torch.where(slots[None] < counts[:, None], order[take],
+                      torch.full_like(take, n))  # (ncell, cap)
+    coords = positions[order][take]  # (ncell, cap, 3)
+
+    cc = c_iota
+    cell_xyz = torch.stack([cc // (ncy * ncz), (cc // ncz) % ncy, cc % ncz], -1)
+    neigh = cell_xyz[:, None, :] + torch.as_tensor(_HALF_STENCIL, device=dev)
+    neigh_id = ((torch.remainder(neigh[..., 0], ncx) * ncy
+                 + torch.remainder(neigh[..., 1], ncy)) * ncz
+                + torch.remainder(neigh[..., 2], ncz))  # (ncell, 14)
+    cand = ids[neigh_id].reshape(n_cell_total, -1)[cell_id]  # (n, S)
+    pts = coords[neigh_id].reshape(n_cell_total, -1, 3)[cell_id]  # (n, S, 3)
+    dx = pts[..., 0] - positions[:, 0:1]
+    dy = pts[..., 1] - positions[:, 1:2]
+    dz = pts[..., 2] - positions[:, 2:3]
+    s1 = dx * box_inv[0, 0] + dy * box_inv[1, 0] + dz * box_inv[2, 0]
+    s2 = dx * box_inv[0, 1] + dy * box_inv[1, 1] + dz * box_inv[2, 1]
+    s3 = dx * box_inv[0, 2] + dy * box_inv[1, 2] + dz * box_inv[2, 2]
+    s1 = s1 - torch.floor(s1 + 0.5)
+    s2 = s2 - torch.floor(s2 + 0.5)
+    s3 = s3 - torch.floor(s3 + 0.5)
+    wx = s1 * box[0, 0] + s2 * box[1, 0] + s3 * box[2, 0]
+    wy = s1 * box[0, 1] + s2 * box[1, 1] + s3 * box[2, 1]
+    wz = s1 * box[0, 2] + s2 * box[1, 2] + s3 * box[2, 2]
+    r2 = wx * wx + wy * wy + wz * wz
+    i_ids = torch.arange(n, device=dev)[:, None]
+    # own cell (the first cell_capacity slots): i < j; other cells: i != j
+    own = (torch.arange(cand.shape[1], device=dev) < cell_capacity)[None]
+    dedupe = torch.where(own, cand > i_ids, cand != i_ids)
+    good = dedupe & (cand < n) & (r2 < cutoff * cutoff)
+    return good, cand, bucket_overflow
+
+
+def _cell_pairs(positions, box, cutoff, n_cells, cell_capacity, capacity,
+                sort_i=True):
+    """(pairs (capacity, 2), overflow): the cell-list search at static
+    shapes. Compaction in two stages: each row's partner ids, invalid slots
+    set to n, are sorted and cut to _ROW_K; the rows then go to the flat
+    list by their offsets (cumsum), the slot -> row map by a scatter of the
+    row starts and a running maximum. Each pair comes out as (min, max);
+    with ``sort_i`` one stable sort of the i column restores the global
+    order that the swap broke (padding sorts last)."""
+    n = positions.shape[0]
+    dev = positions.device
+    good, cand, bucket_overflow = _cell_candidates(positions, box, cutoff,
+                                                   n_cells, cell_capacity)
+    k_row = min(_ROW_K, cand.shape[1])
+    rowcnt = good.sum(dim=1)
+    n_found = rowcnt.sum()
+    cj = torch.sort(torch.where(good, cand, torch.full_like(cand, n)),
+                    dim=1).values[:, :k_row]
+    offs = torch.cat([rowcnt.new_zeros(1), torch.cumsum(rowcnt, 0)])
+    mark = torch.zeros(capacity, dtype=torch.long, device=dev).scatter_reduce(
+        0, torch.clamp(offs[:-1], max=capacity - 1),
+        torch.arange(n, device=dev), reduce="amax")
+    r = torch.cummax(mark, 0).values
+    p_iota = torch.arange(capacity, device=dev)
+    k = p_iota - offs[r]
+    valid = p_iota < offs[-1]
+    jj_raw = cj.reshape(-1)[torch.clamp(r, max=n - 1) * k_row
+                            + torch.clamp(k, 0, k_row - 1)]
+    fill = torch.full_like(r, n)
+    ii = torch.where(valid, torch.minimum(r, jj_raw), fill)
+    jj = torch.where(valid, torch.maximum(r, jj_raw), fill)
+    pairs = torch.stack([ii, jj], dim=-1)
+    if sort_i:
+        pairs = pairs[torch.argsort(ii, stable=True)]
+    overflow = (n_found > capacity) | bucket_overflow | torch.any(rowcnt > k_row)
+    return pairs, overflow
+
+
+def _host_pair_count(positions, box, cutoff, n_cells) -> int:
+    """The exact number of unordered in-cutoff pairs, in numpy on the host,
+    by the half stencil: it sizes the capacity at allocation."""
+    n = positions.shape[0]
+    box_inv = np.linalg.inv(box)
+    frac = positions @ box_inv
+    frac -= np.floor(frac)
+    ncx, ncy, ncz = n_cells
+    cx, cy, cz = (np.minimum((frac[:, d] * nc).astype(np.int64), nc - 1)
+                  for d, nc in enumerate(n_cells))
+    cid = (cx * ncy + cy) * ncz + cz
+    order = np.argsort(cid, kind="stable")
+    sorted_cid = cid[order]
+    counts = np.bincount(cid, minlength=ncx * ncy * ncz)
+    cap = max(int(counts.max()), 1)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    buckets = np.full((ncx * ncy * ncz, cap), n, dtype=np.int64)
+    buckets[sorted_cid, np.arange(n) - starts[sorted_cid]] = order
+    pos_pad = np.vstack([positions, np.zeros((1, 3))])
+    my_cell = np.stack([cx, cy, cz], axis=-1)
+    i_ids = np.arange(n)[:, None]
+    total = 0
+    for si, off in enumerate(_HALF_STENCIL):
+        nb = my_cell + off[None, :]
+        nid = ((nb[:, 0] % ncx) * ncy + nb[:, 1] % ncy) * ncz + nb[:, 2] % ncz
+        cand = buckets[nid]
+        s = (pos_pad[cand] - positions[:, None, :]) @ box_inv
+        s -= np.floor(s + 0.5)
+        w = s @ box
+        r2 = np.einsum("nkc,nkc->nk", w, w)
+        ok = (cand > i_ids) if si == 0 else (cand != i_ids)
+        total += int((ok & (cand < n) & (r2 < cutoff * cutoff)).sum())
+    return total
+
+
+def neighbor_list_cell(positions, box, cutoff, capacity=None,
+                       cell_capacity=None, padding=1.25, sort_i=True):
+    """Allocate a cell list on the positions' device. Cells are at least
+    ``cutoff`` wide; with fewer than 3 per axis the half stencil would visit
+    a cell twice, and the dense list is returned instead.
+
+    Without a ``cell_capacity`` it is sized from the largest cell
+    occupancy, and without a ``capacity`` from the host pair count, with
+    ``padding`` headroom, in buckets of max(1024, 2^(bits - 4)). An
+    overflow doubles both and searches again, up to 8 times."""
+    n_cells = _cell_grid(box, cutoff)
+    if min(n_cells) < 3:
+        return neighbor_list_dense(positions, box, cutoff, capacity, padding)
+    pos_np = positions.detach().cpu().numpy().astype(np.float64)
+    box_np = box.detach().cpu().numpy().astype(np.float64)
+    if cell_capacity is None:
+        frac = pos_np @ np.linalg.inv(box_np)
+        frac -= np.floor(frac)
+        cid = [np.minimum((frac[:, d] * n_cells[d]).astype(int), n_cells[d] - 1)
+               for d in range(3)]
+        flat = (cid[0] * n_cells[1] + cid[1]) * n_cells[2] + cid[2]
+        max_occ = int(np.bincount(flat).max())
+        cell_capacity = max(int(np.ceil(max_occ * padding)) + 2, 8)
+    if capacity is None:
+        want = int(_host_pair_count(pos_np, box_np, float(cutoff), n_cells)
+                   * padding)
+        bucket = max(1024, 1 << max(want.bit_length() - 4, 10))
+        capacity = -(-want // bucket) * bucket
+    with torch.no_grad():
+        for _ in range(8):
+            pairs, overflow = _cell_pairs(positions, box, cutoff, n_cells,
+                                          cell_capacity, capacity, sort_i)
+            if not bool(overflow):
+                break
+            cell_capacity *= 2
+            capacity *= 2
+    return NeighborList(pairs, overflow, capacity, float(cutoff),
+                        i_sorted=bool(sort_i), n_cells=n_cells,
+                        cell_capacity=cell_capacity)

@@ -34,9 +34,9 @@ def pair_displacement_components(positions, box, i, j, mask):
     return _displacement_from_rows(p_i, p_j, box, mask) + (p_i, p_j)
 
 
-def _displacement_from_rows(p_i, p_j, box, mask, binv=None):
-    """Wrap/norm math given gathered (C, 3) position rows. ``binv`` may be
-    passed in, as the pair kernel takes the box inverse as its own input."""
+def min_image_components(p_i, p_j, box, binv=None):
+    """(dx, dy, dz): the minimum-image displacement p_i - p_j of gathered
+    (C, 3) position rows, by the fractional wrap."""
     dx = p_i[:, 0] - p_j[:, 0]
     dy = p_i[:, 1] - p_j[:, 1]
     dz = p_i[:, 2] - p_j[:, 2]
@@ -51,6 +51,13 @@ def _displacement_from_rows(p_i, p_j, box, mask, binv=None):
     dx = sa * box[0, 0] + sb * box[1, 0] + sc * box[2, 0]
     dy = sa * box[0, 1] + sb * box[1, 1] + sc * box[2, 1]
     dz = sa * box[0, 2] + sb * box[1, 2] + sc * box[2, 2]
+    return dx, dy, dz
+
+
+def _displacement_from_rows(p_i, p_j, box, mask, binv=None):
+    """Wrap/norm math given gathered (C, 3) position rows. ``binv`` may be
+    passed in, as the pair kernel takes the box inverse as its own input."""
+    dx, dy, dz = min_image_components(p_i, p_j, box, binv)
     sq = dx * dx + dy * dy + dz * dz
     one = torch.ones_like(sq)
     r = torch.where(mask, torch.sqrt(torch.where(mask, sq, one)), one)

@@ -4,7 +4,10 @@ convolution (admp_tpu/ops/reciprocal.py, plain precision only).
 E = prefactor sum_k C(|k|^2) |S_k|^2 / theta_k^2 with S_k = FFT(Q_mesh), over
 the rfft half-spectrum with Hermitian multiplicity weights. The spread runs
 on the CUDA kernel pair of ops/cuda/spread.py or on ``index_add_``
-(``spread_method``).
+(``spread_method``). The electrostatic engine (``make_pme_recip``) spreads
+one multipolar channel and excludes the gamma point; the dispersion engine
+(``make_disp_pme_recip``) spreads the C6/C8/C10 channels in one pass and
+includes it.
 """
 
 from __future__ import annotations
@@ -135,9 +138,38 @@ def spread_to_mesh(positions, box, q_harm, grid_shape, lmax: int,
     return mesh[0]
 
 
+def spread_to_mesh_multi(positions, box, coeffs, grid_shape, order: int = 6,
+                         method: str = "auto"):
+    """Spread C scalar channels (``coeffs`` (N, C)) over one B-spline
+    geometry onto a (C, K1, K2, K3) mesh, channel axis leading: the
+    dispersion C6/C8/C10 grids in one pass.
+
+    The stencil is theta (N, order^3), z fastest, times each channel's
+    coefficient: the (N, C, order^3) values K4 takes. ``'auto'`` takes the
+    kernel for float32 CUDA tensors at orders 4 and 6 alike, as admp_tpu's
+    multi-channel 'auto' takes its Pallas slab kernel at either order
+    (reciprocal.py:552-557); the single-channel order-6 rule of
+    ``resolve_spread_method`` does not apply here."""
+    grid_shape = tuple(int(k) for k in grid_shape)
+    m_u0, q_points = multi_stencil(positions, box, coeffs, grid_shape, order)
+    return spread_ops.spread(m_u0, q_points, grid_shape, order, method)
+
+
+def multi_stencil(positions, box, coeffs, grid_shape, order: int = 6):
+    """(m_u0 (N, 3), q_points (N, C, order^3)): the base mesh indices and
+    each channel's stencil values theta * coeffs, theta's points ordered
+    (x, y, z) with z fastest, offsets -order/2 .. order/2 - 1."""
+    n = positions.shape[0]
+    m_u0, u0, _ = mesh_coordinates(positions, box, grid_shape, order)
+    m = bsplines.spline_values(u0, order)  # (N, order, 3)
+    txy = (m[:, :, None, 0] * m[:, None, :, 1]).reshape(n, order * order)
+    theta = (txy[:, :, None] * m[:, None, :, 2]).reshape(n, order ** 3)
+    return m_u0, theta[:, None, :] * coeffs[:, :, None]
+
+
 def spectrum_sq(mesh):
-    """|FFT(mesh)|^2 over the rfft half-spectrum."""
-    s_k = torch.fft.rfftn(mesh)
+    """|FFT(mesh)|^2 over the rfft half-spectrum of the last three axes."""
+    s_k = torch.fft.rfftn(mesh, dim=(-3, -2, -1))
     return s_k.real * s_k.real + s_k.imag * s_k.imag
 
 
@@ -180,18 +212,22 @@ def _hermitian_weights(k3: int, dtype, device):
     return w
 
 
-def influence_weights(box, grid_shape, kappa, ck_fn, order: int = 6):
+def influence_weights(box, grid_shape, kappa, ck_fn, order: int = 6,
+                      include_gamma: bool = False):
     """Influence grid C(k^2)/theta_k^2 over the rfft half-spectrum with the
     Hermitian multiplicity folded in, in the box's dtype. The gamma point is
-    excluded (electrostatics; the dispersion kernels that include it are
-    not ported yet)."""
+    excluded (electrostatics) or, with ``include_gamma`` (dispersion), holds
+    the kernel's analytic limit ``ck_fn.at_zero`` / theta_0^2: admp_tpu adds
+    that term beside the sum (reciprocal.py:627-629, 676-677); folded into
+    the grid it is the same term."""
     ksq, theta_sq = k_space_grids(box, grid_shape, box.dtype, order)
     volume = det3x3(box)
     w3 = _hermitian_weights(grid_shape[2], box.dtype, box.device)
     nonzero = ksq > 0.0
     ksq_safe = torch.where(nonzero, ksq, torch.ones_like(ksq))
-    c_k = torch.where(nonzero, ck_fn(ksq_safe, kappa, volume),
-                      torch.zeros_like(ksq))
+    gamma = (ck_fn.at_zero(kappa, volume) * torch.ones_like(ksq)
+             if include_gamma else torch.zeros_like(ksq))
+    c_k = torch.where(nonzero, ck_fn(ksq_safe, kappa, volume), gamma)
     return c_k / theta_sq * w3[None, None, :]
 
 
@@ -261,3 +297,46 @@ def make_pme_recip(ck_fn, kappa, grid_shape, lmax, prefactor=1.0,
         return energy.to(q_harm.dtype)
 
     return pme_recip
+
+
+def _multi_weights(box, grid_shape, kappa, ck_fns, order, include_gamma):
+    return torch.stack([influence_weights(box, grid_shape, kappa, ck_fn, order,
+                                          include_gamma) for ck_fn in ck_fns])
+
+
+def convolve_energy_multi(meshes, box, kappa, ck_fns, include_gamma: bool,
+                          prefactor=1.0, order: int = 6):
+    """E = prefactor sum_c sum_k C_c(k^2) |S_c,k|^2 / theta_k^2 for
+    channel-stacked (C, K1, K2, K3) meshes, one batched rfft."""
+    weights = _multi_weights(box.to(meshes.dtype), tuple(meshes.shape[1:]),
+                             kappa, ck_fns, order, include_gamma)
+    return prefactor * torch.sum(weights * spectrum_sq(meshes))
+
+
+def make_disp_pme_recip(ck_fns, kappa, grid_shape, static_box=None,
+                        spread_order: int = 6, spread_method: str = "auto"):
+    """Multi-channel dispersion reciprocal engine (positions, box, c_list)
+    -> energy: one spread of the len(ck_fns) leading columns of c_list, one
+    batched FFT, the gamma point included.
+
+    ``static_box``: fixed-cell fast path; the influence grids are computed
+    once (in the box tensor's dtype and device) and box gradients through
+    the engine are zero, with a warning (_CachedInfluenceBoxGuard)."""
+    grid_shape = tuple(int(k) for k in grid_shape)
+    ck_fns = tuple(ck_fns)
+    cached = None
+    if static_box is not None:
+        cached = _multi_weights(static_box, grid_shape, kappa, ck_fns,
+                                spread_order, True)
+
+    def disp_recip(positions, box, c_list):
+        if cached is not None:
+            box = _CachedInfluenceBoxGuard.apply(box)
+        meshes = spread_to_mesh_multi(positions, box, c_list[:, :len(ck_fns)],
+                                      grid_shape, spread_order, spread_method)
+        if cached is not None:
+            return torch.sum(cached.to(meshes.dtype) * spectrum_sq(meshes))
+        return convolve_energy_multi(meshes, box, kappa, ck_fns, True,
+                                     order=spread_order)
+
+    return disp_recip

@@ -28,3 +28,14 @@ def polarization_penalty(u_ind, pol):
     """sum_a |U_a|^2 / (2 pol_a) DIELECTRIC, pol floored at 1e-8."""
     pol_safe = torch.clamp(pol, min=1e-8)
     return torch.sum(0.5 / pol_safe * torch.sum(u_ind * u_ind, dim=-1)) * DIELECTRIC
+
+
+def dispersion_self_energy(c_list, kappa, pmax: int):
+    """Dispersion Ewald self energy E_p = -kappa^p / const_p sum_a c_p^2,
+    const = (12, 48, 240) for p = (6, 8, 10)."""
+    energy = -(kappa**6) / 12.0 * torch.sum(c_list[:, 0] ** 2)
+    if pmax >= 8:
+        energy = energy - kappa**8 / 48.0 * torch.sum(c_list[:, 1] ** 2)
+    if pmax >= 10:
+        energy = energy - kappa**10 / 240.0 * torch.sum(c_list[:, 2] ** 2)
+    return energy

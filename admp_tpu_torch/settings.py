@@ -94,6 +94,16 @@ class EngineConfig:
     pairs_i_sorted: accepted for compatibility and ignored. admp_tpu uses it
     to pick a sorted segment-sum backward for the i-side row gather; the
     port's ``index_select`` backward is right for any pair order.
+
+    Dispersion (models/dispersion.ADMPDispPmeForce):
+      pmax_recip: reciprocal-space pmax (6 drops the C8/C10 k-space
+        channels; real and self space keep the full pmax). None = pmax.
+      disp_ethresh: the Ewald accuracy target of the dispersion grids.
+        None = the electrostatic ethresh.
+      disp_spread_order: the B-spline order of the dispersion spread (6 or
+        4). Under ``spread_method='auto'`` the three-channel dispersion mesh
+        takes the kernel at both orders, as admp_tpu's multi-channel 'auto'
+        takes its Pallas slab kernel (reciprocal.py:552-557).
     """
 
     fft_friendly_grid: bool | str = "auto"
@@ -106,6 +116,9 @@ class EngineConfig:
     realspace_precision: str | None = None
     recip_precision: str | None = None
     compensated_sums: bool = True
+    pmax_recip: int | None = None
+    disp_ethresh: float | None = None
+    disp_spread_order: int = 6
     cache_influence: bool = False
     scf: SCFConfig = dataclasses.field(default_factory=SCFConfig)
 
@@ -121,8 +134,9 @@ class EngineConfig:
                      "spread_precision"):
             if getattr(self, name) is not None:
                 _not_implemented(f"EngineConfig.{name}", "queue 1, S4")
-        if self.spread_order not in (4, 6):
-            raise ValueError(f"spread_order={self.spread_order}: 4 or 6")
+        for name in ("spread_order", "disp_spread_order"):
+            if getattr(self, name) not in (4, 6):
+                raise ValueError(f"{name}={getattr(self, name)}: 4 or 6")
 
     def resolve_fft_friendly(self) -> bool:
         """'auto' -> False: the 5-smooth rounding is a TPU FFT rule."""

@@ -10,3 +10,7 @@ DIELECTRIC = 1389.35455846
 DEFAULT_THOLE_WIDTH = 0.3
 
 SQRT_PI = 1.7724538509055159
+
+# Unit conversions of the Tang-Toennies kernel (ops/shortrange.py).
+ANGSTROM_TO_BOHR = 1.889726878
+HARTREE_TO_KJMOL = 2625.5

@@ -24,9 +24,20 @@ Phases (any failure exits nonzero; no phase failure is caught):
      polarizable model (Q_local, pol, tholes) and of energy_force_loss on the
      fixed-multipole model (Q_local), B=2 each, kernel path against plain f32;
      launch counts (K3 for perm);
-  4. timing: ms/step of the MD step (median of 3 x 10 steps, CUDA events) and
-     of the exact-adjoint step, ms per fitting step, and each kernel beside
-     its plain version.
+  3e. the full force field (bench.py's build_nonpol_workload): multipolar
+     PME (lmax 2, non-polarizable, K=128^3, kappa pinned) + dispersion PME
+     (pmax 10, disp_ethresh 2e-4, order-4 three-channel spread, K=128^3) +
+     Tang-Toennies over cell-list pairs; one cold step and 10 drift steps,
+     launch counts per (order, C); the first step and dE/dc_list against the
+     plain path in f32 and f64; 2 fitting.fit steps of energy_force_loss
+     over c_list against plain f32;
+  4. timing: ms/step of the MD step (median of 3 x 10 steps, CUDA events), of
+     the exact-adjoint step and of the full-force-field step, ms per fitting
+     step, one profiler window each of the MD and full-force-field steps, and
+     each kernel beside its plain version, its bound on the card and, where
+     one exists, the one PyTorch call that computes the same function.
+Phase 2 also holds the three-channel spread and gather (K4, K6 at C=3) on the
+dispersion stencil at orders 4 and 6.
 Each path's launch counts are set to 0 just before it runs and read just
 after. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Long logs go to chiprun_out/chip_smoke/.
@@ -76,6 +87,19 @@ TOL_HVP = 1e-4
 TOL_ADJ_F = 2e-4        # exact adjoint, first step, kernel vs plain f32 forces
 TOL_FIT = 1e-2          # fitting losses, kernel vs plain f32, each step
 
+# the full force field of bench.py's build_nonpol_workload
+KAPPA_FF, K_FF = 0.657065221219616, 128
+PMAX, DISP_ETHRESH, DISP_ORDER = 10, 2e-4, 4
+N_FF_FIT_STEPS = 2
+# Adam's step on c_list (entries 7-134, started 5% off): large enough that
+# the force-matching loss falls in f32
+FF_FIT_LR = 0.1
+
+# the card's published peaks (H100 SXM, at the full 700 W): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+
 
 def log(msg):
     print(msg, flush=True)
@@ -124,8 +148,11 @@ def cuda_time_ms(fn, n=20, warmup=3):
 
 
 def build_workload(device):
-    """The bench.py polarizable workload (build_pol_workload) in the port."""
-    from admp_tpu_torch import convert_cart2harm, neighbor_list_dense, water_system
+    """The bench.py polarizable workload (build_pol_workload) in the port,
+    with the full force field's dispersion coefficients and cell-list pairs
+    (build_nonpol_workload) on the same box."""
+    from admp_tpu_torch import convert_cart2harm, neighbor_list_cell, neighbor_list_dense
+    from admp_tpu_torch import water_system
     from admp_tpu_torch.ops.ewald import setup_ewald_parameters
 
     s = water_system(n_side=N_SIDE, spacing=SPACING, jitter=JITTER, seed=SEED)
@@ -139,11 +166,15 @@ def build_workload(device):
     rng = np.random.default_rng(1)
     drift = torch.tensor(DRIFT * rng.standard_normal(s["positions"].shape),
                          **f32)
+    cell = neighbor_list_cell(positions, box, RC)
+    require(not bool(cell.did_overflow) and cell.i_sorted,
+            "cell list overflow or not i-sorted")
     return dict(sys=s, positions=positions, box=box, pairs=nl.pairs,
                 q_local=q_local, pol=torch.tensor(s["pol"], **f32),
                 tholes=torch.tensor(s["tholes"], **f32),
                 scales=torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0], **f32),
-                drift=drift, grid=(k1, k2, K3))
+                drift=drift, grid=(k1, k2, K3),
+                c_list=torch.tensor(s["c_list"], **f32), ff_pairs=cell.pairs)
 
 
 def make_force(w, lpol, device, dtype, method, fixed_iters=None, scf=None):
@@ -358,6 +389,48 @@ def check_spread(w, record):
     record["_spread_inputs"] = (m_u0, q, g_mesh)
 
 
+def disp_stencil(w, order):
+    """The dispersion mesh's stencil values (C=3) of the 3000-atom box on
+    the (128, 128, 128) grid, as ADMPDispPmeForce builds them."""
+    from admp_tpu_torch.ops.reciprocal import multi_stencil
+
+    m_u0, q = multi_stencil(w["positions"], w["box"], w["c_list"],
+                            (K_FF,) * 3, order)
+    return m_u0.contiguous(), q.contiguous()
+
+
+def check_spread_c3(w, record):
+    """K4 and K6 at C=3 on the dispersion stencil, orders 4 and 6."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    grid = (K_FF,) * 3
+    for order in (4, 6):
+        m_u0, q = disp_stencil(w, order)
+        mesh_k = S.launch_spread(m_u0, q, grid, order)
+        mesh_p = S.spread_torch(m_u0, q, grid, order)
+        torch.cuda.synchronize()
+        err = float((mesh_k - mesh_p).abs().max())
+        scale = float(mesh_p.abs().max())
+        rng = np.random.default_rng(6)
+        g_mesh = torch.tensor(rng.standard_normal((3, *grid)), device=q.device,
+                              dtype=torch.float32)
+        out_k = S.launch_gather(m_u0, g_mesh, grid, order)
+        out_p = S.gather_torch(m_u0, g_mesh, grid, order)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out_k, out_p))
+        log(f"spread C=3 order {order} N={m_u0.shape[0]} grid={grid}: max abs "
+            f"err {err:.3e} = {err / scale:.3e} x max|mesh|; gather bitwise "
+            f"equal {same}")
+        require(err <= TOL_SPREAD * scale, f"spread C=3 order {order} "
+                f"{err / scale}")
+        require(same, f"gather C=3 order {order} differs from plain gather")
+        if order == DISP_ORDER:
+            record["spread_c3"]["max_abs_err"] = err
+            record["gather_c3"]["max_abs_err"] = float(
+                (out_k - out_p).abs().max())
+            record["_spread_c3_inputs"] = (m_u0, q, g_mesh, order)
+
+
 # ---------------------------------------------------------------------------
 # phase 3/4: the main path
 # ---------------------------------------------------------------------------
@@ -439,6 +512,8 @@ def reset_counts():
               S.launch_spread, S.launch_gather):
         c.launches = 0
     P.launch_pair_hvp.by_kind = dict.fromkeys(P.KINDS, 0)
+    S.launch_spread.by_shape = dict.fromkeys(S.SHAPES, 0)
+    S.launch_gather.by_shape = dict.fromkeys(S.SHAPES, 0)
 
 
 def read_counts():
@@ -450,7 +525,9 @@ def read_counts():
             "pair_hvp": P.launch_pair_hvp.launches,
             "spread": S.launch_spread.launches,
             "gather": S.launch_gather.launches,
-            "pair_hvp_by_kind": dict(P.launch_pair_hvp.by_kind)}
+            "pair_hvp_by_kind": dict(P.launch_pair_hvp.by_kind),
+            "spread_by_shape": dict(S.launch_spread.by_shape),
+            "gather_by_shape": dict(S.launch_gather.by_shape)}
 
 
 def adjoint_path(w, record):
@@ -595,34 +672,203 @@ def fitting_path(w, record):
     return times
 
 
-def time_steps(force, w, dtype=torch.float32):
-    """Median ms/step over N_REPEATS runs of N_STEPS warm steps, CUDA events
-    around each run (the runs end in a synchronize)."""
-    run_steps(force, w, w["positions"], 2, dtype)  # warm-up
+def make_ff(w, device, dtype, method):
+    """The full force field of bench.py's build_nonpol_workload in the port:
+    (total(positions, c_list) -> energy, the dispersion force)."""
+    from admp_tpu_torch import (
+        ADMPDispPmeForce,
+        ADMPPmeForce,
+        EngineConfig,
+        generate_pairwise_interaction,
+        tt_damping_qq_c6_kernel,
+    )
+
+    s = w["sys"]
+    pme = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                       s["covalent_map"], RC, ETHRESH, lmax=LMAX,
+                       config=EngineConfig(cache_influence=True,
+                                           pair_kernel=method,
+                                           spread_method=method),
+                       device=device, dtype=dtype)
+    disp = ADMPDispPmeForce(s["box"], s["covalent_map"], RC, ETHRESH, PMAX,
+                            config=EngineConfig(disp_ethresh=DISP_ETHRESH,
+                                                disp_spread_order=DISP_ORDER,
+                                                cache_influence=True,
+                                                spread_method=method),
+                            device=device, dtype=dtype)
+    for f in (pme, disp):
+        f.kappa = KAPPA_FF
+        f.K1 = f.K2 = f.K3 = K_FF
+        f.refresh_calculators()
+    tt = generate_pairwise_interaction(tt_damping_qq_c6_kernel,
+                                       s["covalent_map"], device=device)
+    c = lambda x: torch.as_tensor(x, device=device, dtype=dtype)  # noqa: E731
+    box, q_local, sc = c(w["box"]), c(w["q_local"]), c(w["scales"])
+    tt_a, tt_b, tt_q = c(s["tt_a"]), c(s["tt_b"]), c(s["tt_q"])
+    pairs = w["ff_pairs"]
+
+    def total(positions, c_list):
+        e = pme.get_energy(positions, box, pairs, q_local, sc)
+        e = e + disp.get_energy(positions, box, pairs, c_list, sc)
+        return e + tt(positions, box, pairs, sc, tt_a, tt_b, tt_q,
+                      c_list[:, 0])
+
+    return total, disp
+
+
+def ff_step(total, positions, c_list):
+    pos = positions.detach().requires_grad_(True)
+    with torch.enable_grad():
+        e = total(pos, c_list)
+        (g,) = torch.autograd.grad(e, pos)
+    return e.detach(), g
+
+
+def run_ff(total, w, n_steps, dtype=torch.float32):
+    """n_steps full-force-field steps with drift, consuming the forces."""
+    p, c_list = w["positions"].to(dtype), w["c_list"].to(dtype)
+    energies = []
+    for _ in range(n_steps):
+        e, g = ff_step(total, p, c_list)
+        p = p + w["drift"].to(dtype) + 0.0 * g
+        energies.append(e)
+    return energies
+
+
+def ff_path(w, record):
+    """Phase 3e: the full force field on the kernels and against the plain
+    path; returns the kernel and plain f32 step functions."""
+    from admp_tpu_torch import energy_force_loss, fit
+    from admp_tpu_torch.fitting import adam
+
+    dev = w["positions"].device
+    kern, disp = make_ff(w, dev, torch.float32, "auto")
+    log(f"full force field: electrostatic and dispersion grid {(K_FF,) * 3}, "
+        f"kappa {KAPPA_FF}, dispersion heuristic grid of disp_ethresh "
+        f"{DISP_ETHRESH} overridden, pmax {PMAX} (reciprocal channels "
+        f"{disp._pmax_recip}), spread order {DISP_ORDER}, pairs "
+        f"{w['ff_pairs'].shape[0]} (cell list)")
+    reset_counts()
+    energies = run_ff(kern, w, 1 + N_STEPS)
+    counts = read_counts()
+    log(f"phase 3e launches: {counts}")
+    log("full force field steps: energies "
+        + str([round(float(e), 4) for e in energies]))
+    c3 = (DISP_ORDER, 3)
+    require(counts["spread_by_shape"][c3] > 0
+            and counts["gather_by_shape"][c3] > 0,
+            "the C=3 spread or gather never launched")
+    require(counts["spread_by_shape"][6, 1] > 0
+            and counts["gather_by_shape"][6, 1] > 0
+            and counts["pair_fwd"] > 0 and counts["pair_bwd"] > 0,
+            "an electrostatic kernel never launched")
+    require(all(bool(torch.isfinite(e)) for e in energies),
+            "full force field: non-finite energy")
+    record["spread_c3"]["launches"] = counts["spread_by_shape"][c3]
+    record["gather_c3"]["launches"] = counts["gather_by_shape"][c3]
+
+    plain32, _ = make_ff(w, dev, torch.float32, "torch")
+    plain64, _ = make_ff(w, dev, torch.float64, "torch")
+    c32, c64 = w["c_list"], w["c_list"].double()
+    e0, g0 = ff_step(kern, w["positions"], c32)
+    e_p, g_p = ff_step(plain32, w["positions"], c32)
+    e_64, g_64 = ff_step(plain64, w["positions"].double(), c64)
+    require(bool(torch.isfinite(g0).all())
+            and tuple(g0.shape) == tuple(w["positions"].shape),
+            "full force field: forces not finite or of the wrong shape")
+    de = abs(float(e0) - float(e_p)) / abs(float(e_p))
+    df, df64 = rel_rmse(g0, g_p), rel_rmse(g0, g_64)
+    log(f"full force field first step: E {float(e0):.6f} (kernel f32), "
+        f"{float(e_p):.6f} (plain f32), {float(e_64):.6f} (plain f64) kJ/mol;"
+        f" kernel vs plain f32 energy rel {de:.3e}, force rel RMSE {df:.3e};"
+        f" vs plain f64 force rel RMSE {df64:.3e}, plain f32 vs f64 "
+        f"{rel_rmse(g_p, g_64):.3e}")
+    require(de < TOL_STEP_E, f"full force field energy {de}")
+    require(df < TOL_STEP_F, f"full force field forces vs plain f32 {df}")
+    require(df64 < TOL_F64, f"full force field forces vs plain f64 {df64}")
+
+    grads = {}
+    for name, total, c0 in (("kernel", kern, c32), ("plain32", plain32, c32),
+                            ("plain64", plain64, c64)):
+        c_req = c0.clone().requires_grad_(True)
+        pos = w["positions"].to(c0.dtype)
+        (grads[name],) = torch.autograd.grad(total(pos, c_req), c_req)
+    err_k = rel_rmse(grads["kernel"], grads["plain64"])
+    err_32 = rel_rmse(grads["plain32"], grads["plain64"])
+    log(f"dE/dc_list: kernel f32 vs plain f64 rel RMSE {err_k:.3e}, plain f32 "
+        f"vs plain f64 {err_32:.3e}")
+    require(bool(torch.isfinite(grads["kernel"]).all()), "dE/dc_list not finite")
+    require(err_k <= 2 * err_32 + 1e-6, f"dE/dc_list {err_k} > 2 x {err_32}")
+
+    # force matching over c_list: targets from the plain f64 path at a
+    # drifted configuration, the fit started 5% off
+    p1 = w["positions"] + w["drift"]
+    e_t, g_t = ff_step(plain64, p1.double(), c64)
+    batch = [(p1, w["box"], w["ff_pairs"], e_t.float(), -g_t.float())]
+    runs = {}
+    for name, total in (("kernel", kern), ("plain32", plain32)):
+        loss = energy_force_loss(
+            lambda pos, box, pairs, params, total=total: total(pos,
+                                                               params["c"]))
+        if name == "kernel":
+            reset_counts()
+        runs[name] = fit(loss, {"c": 1.05 * c32}, [batch] * N_FF_FIT_STEPS,
+                         optimizer=adam(FF_FIT_LR), log_every=0)
+        if name == "kernel":
+            fit_counts = read_counts()
+    lk = [h["loss"] for h in runs["kernel"].history]
+    lp = [h["loss"] for h in runs["plain32"].history]
+    log(f"phase 3e fit launches (kernel run): {fit_counts}")
+    log(f"fit (energy_force_loss over c_list): kernel losses {lk}, plain f32 "
+        f"losses {lp}")
+    require(all(np.isfinite(lk)) and all(np.isfinite(lp)),
+            "c_list fit: non-finite loss")
+    require(lk[-1] < lk[0], "c_list fit: the loss did not fall")
+    require(all(abs(a - b) <= TOL_FIT * abs(b) for a, b in zip(lk, lp)),
+            "c_list fit: kernel and plain losses differ")
+    require(fit_counts["spread_by_shape"][c3] > 0
+            and fit_counts["gather_by_shape"][c3] > 0,
+            "c_list fit: the C=3 kernels never launched")
+    fit_ms = {m: [1e3 * h["dt"] for h in runs[m].history] for m in runs}
+    return kern, plain32, fit_ms
+
+
+def time_runs(run):
+    """Median ms/step over N_REPEATS calls of run(N_STEPS), CUDA events
+    around each call (each ends in a synchronize); run returns a list of the
+    per-step PCG iteration counts, or of anything."""
+    run(2)  # warm-up
     times, iters = [], []
     for _ in range(N_REPEATS):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        _, out = run_steps(force, w, w["positions"], N_STEPS, dtype)
+        out = run(N_STEPS)
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / N_STEPS)
-        iters += [s[1] for s in out]
+        iters += out
     return statistics.median(times), times, iters
 
 
-def profile_steps(force, w, n_steps=3):
-    """Device busy share and the top device kernels over n_steps warm steps
-    (torch.profiler); the table goes to chiprun_out/chip_smoke/."""
+def time_steps(force, w, dtype=torch.float32):
+    """The polarizable step's time_runs, with its PCG iteration counts."""
+    return time_runs(lambda n: [s[1] for s in run_steps(
+        force, w, w["positions"], n, dtype)[1]])
+
+
+def profile_steps(run, name, n_steps=3):
+    """Device busy share and the top device kernels over run(n_steps) warm
+    steps (torch.profiler); the table goes to
+    chiprun_out/chip_smoke/profile_<name>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
-    run_steps(force, w, w["positions"], 1)
+    run(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_steps(force, w, w["positions"], n_steps)
+        run(n_steps)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_steps
     events = [e for e in prof.events()
@@ -630,7 +876,7 @@ def profile_steps(force, w, n_steps=3):
     device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / n_steps
     table = prof.key_averages().table(sort_by="device_time_total",
                                       row_limit=25)
-    (OUT_DIR / "profile.txt").write_text(table)
+    (OUT_DIR / f"profile_{name}.txt").write_text(table)
     top = sorted(prof.key_averages(), key=lambda a: -a.device_time_total)
     top = [a for a in top if a.device_time_total > 0][:8]
     return wall, device_ms, len(events) / n_steps, [
@@ -638,34 +884,129 @@ def profile_steps(force, w, n_steps=3):
         for a in top]
 
 
+# aten ops that only move, view or make data: they do no arithmetic
+_MOVES = frozenset("""
+_to_copy _unsafe_view alias arange as_strided cat clone contiguous copy_
+detach empty empty_like expand expand_as fill_ full full_like index
+index_select lift_fresh lift_fresh_copy narrow new_empty new_full new_ones
+new_zeros ones ones_like permute reshape scalar_tensor select
+select_backward slice slice_backward split split_with_sizes squeeze stack t
+transpose unbind unsqueeze view zero_ zeros zeros_like
+""".split())
+
+
+def count_ops(fn):
+    """The arithmetic operations of fn(), counted on the host: for each aten
+    op that is not a data movement (_MOVES), the size of its largest operand
+    or result. The plain versions repeat their kernels' arithmetic, so this
+    counts a kernel's work on the same inputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ not in _MOVES:
+                leaves = tree_flatten((args, kwargs, out))[0]
+                Count.ops += max((t.numel() for t in leaves
+                                  if isinstance(t, torch.Tensor)), default=0)
+            return out
+
+    with Count():
+        fn()
+    return Count.ops
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take to
+    move n_bytes through HBM and do n_ops float32 operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def spread_calls(m_u0, q, g_mesh, order):
+    """(kernel, plain, library) calls of the spread and of the gather at one
+    (order, C), and their bounds: the spread reads the stencil values and
+    writes the whole mesh; the gather reads the mesh points the stencils
+    touch and writes the values."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    grid = tuple(g_mesh.shape[1:])
+    n_ch, kcube = g_mesh.shape[0], g_mesh[0].numel()
+    flat = S.flat_stencil_indices(m_u0, grid, order)  # (N, order^3)
+    chan = torch.arange(n_ch, device=flat.device) * kcube
+    s_idx = (flat[None] + chan[:, None, None]).reshape(-1)  # (C, N, P)
+    s_val = q.transpose(0, 1).reshape(-1)
+    zeros = torch.zeros(n_ch * kcube, device=q.device)
+    g_idx = flat[:, None, :] + chan[None, :, None]  # (N, C, P)
+    touched = int(torch.unique(flat).numel()) * n_ch * 4
+    return {
+        "spread": (lambda: S.launch_spread(m_u0, q, grid, order),
+                   lambda: S.spread_torch(m_u0, q, grid, order),
+                   lambda: torch.index_add(zeros, 0, s_idx, s_val),
+                   bound(nbytes(m_u0, q) + 4 * n_ch * kcube, q.numel())),
+        "gather": (lambda: S.launch_gather(m_u0, g_mesh, grid, order),
+                   lambda: S.gather_torch(m_u0, g_mesh, grid, order),
+                   lambda: torch.take(g_mesh, g_idx),
+                   bound(nbytes(m_u0, q) + touched, 0)),
+    }
+
+
 def time_kernels(record):
-    from admp_tpu_torch.ops.cuda import pairs as P, spread as S
+    """Each kernel, its plain version and its one-call PyTorch counterpart
+    (where there is one) at the main path's shapes, and its bound."""
+    from admp_tpu_torch.ops.cuda import pairs as P
 
     g_i, g_j, scl, scal, lmax, ct = record.pop("_pair_inputs")
     leaves = [t.clone().requires_grad_(True) for t in (g_i, g_j, scl, scal)]
     e = (P.pair_energies_torch(*leaves, lmax, "pol") * ct).sum()
-    m_u0, q, g_mesh = record.pop("_spread_inputs")
-    grid = tuple(g_mesh.shape[1:])
     x, hct, cs, hl = record.pop("_hvp_inputs")
+    host = lambda ts: [t.detach().cpu() for t in ts]  # noqa: E731
+    hx, hcs = host(x), host(cs)
+    h_tab, h_ct, h_hct = host((g_i, g_j, scl, scal)), ct.cpu(), hct.cpu()
+
+    def host_bwd():
+        lv = [t.clone().requires_grad_(True) for t in h_tab]
+        torch.autograd.grad((P.pair_energies_torch(*lv, lmax, "pol")
+                             * h_ct).sum(), lv)
+
+    tables = nbytes(g_i, g_j, scl, scal)
     calls = {
         "pair_fwd": (
             lambda: P.launch_pair_fwd(g_i, g_j, scl, scal, lmax, "pol"),
-            lambda: P.pair_energies_torch(g_i, g_j, scl, scal, lmax, "pol")),
+            lambda: P.pair_energies_torch(g_i, g_j, scl, scal, lmax, "pol"),
+            None,
+            bound(tables + nbytes(ct), count_ops(
+                lambda: P.pair_energies_torch(*h_tab, lmax, "pol")))),
         "pair_bwd": (
             lambda: P.launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax, "pol"),
-            lambda: torch.autograd.grad(e, leaves, retain_graph=True)),
+            lambda: torch.autograd.grad(e, leaves, retain_graph=True),
+            None,
+            bound(2 * tables + nbytes(ct), count_ops(host_bwd))),
         "pair_hvp": (
             lambda: P.launch_pair_hvp(*x, hct, *cs, hl, "pol"),
-            lambda: P.pair_hvp_torch(*x, hct, *cs, hl, "pol")),
-        "spread": (lambda: S.launch_spread(m_u0, q, grid, 6),
-                   lambda: S.spread_torch(m_u0, q, grid, 6)),
-        "gather": (lambda: S.launch_gather(m_u0, g_mesh, grid, 6),
-                   lambda: S.gather_torch(m_u0, g_mesh, grid, 6)),
+            lambda: P.pair_hvp_torch(*x, hct, *cs, hl, "pol"),
+            None,
+            bound(2 * nbytes(*x, hct) + nbytes(*cs), count_ops(
+                lambda: P.pair_hvp_torch(*hx, h_hct, *hcs, hl, "pol")))),
     }
-    for name, (kernel, plain) in calls.items():
+    m_u0, q, g_mesh = record.pop("_spread_inputs")
+    calls.update(spread_calls(m_u0, q, g_mesh, 6))
+    m3, q3, g3, order3 = record.pop("_spread_c3_inputs")
+    calls.update({f"{k}_c3": v for k, v in
+                  spread_calls(m3, q3, g3, order3).items()})
+    for name, (kernel, plain, library, (b_ms, b_by)) in calls.items():
         r = record[name]
         r["ms"], r["device_ms"] = cuda_time_ms(kernel)
         r["plain_ms"], r["plain_device_ms"] = cuda_time_ms(plain)
+        r["library_ms"] = cuda_time_ms(library)[0] if library else None
+        r["bound_ms"], r["bound_by"] = b_ms, b_by
 
 
 def card_line():
@@ -712,15 +1053,23 @@ def main():
                        replaces="admp_tpu/ops/pallas/spread.py:210"),
         "gather": dict(source="admp_tpu_torch/csrc/spread.cu",
                        replaces="admp_tpu/ops/pallas/spread.py:890"),
+        # the same kernels at C=3 (the dispersion mesh); TPU kernels reached
+        # through spread_blocks_multi (:629) and gather_blocks (:1361)
+        "spread_c3": dict(source="admp_tpu_torch/csrc/spread.cu",
+                          replaces="admp_tpu/ops/pallas/spread.py:210"),
+        "gather_c3": dict(source="admp_tpu_torch/csrc/spread.cu",
+                          replaces="admp_tpu/ops/pallas/spread.py:890"),
     }
     t0 = time.perf_counter()
     w = build_workload(dev)
     log(f"workload: {w['positions'].shape[0]} atoms, "
-        f"{w['pairs'].shape[0]} pair slots, built in "
+        f"{w['pairs'].shape[0]} pair slots (dense), "
+        f"{w['ff_pairs'].shape[0]} (cell list), built in "
         f"{time.perf_counter() - t0:.1f} s")
     check_pairs(w, record)
     check_hvp(w, record)
     check_spread(w, record)
+    check_spread_c3(w, record)
     log("phase 2: every kernel agrees with its plain version")
 
     force, plain32 = main_path(w, record)
@@ -729,6 +1078,8 @@ def main():
     log("phases 3b, 3c: exact-adjoint path and parameter gradients ok")
     fit_times = fitting_path(w, record)
     log("phase 3d: trainer ok")
+    ff, ff_plain, ff_fit_ms = ff_path(w, record)
+    log("phase 3e: full force field ok")
 
     ms, times, iters = time_steps(force, w)
     ms_plain, times_plain, _ = time_steps(plain32, w)
@@ -758,23 +1109,39 @@ def main():
             f"{statistics.median(t['plain32'][1:]):.3f} ms/step "
             f"({[round(v, 3) for v in t['plain32']]}); the first step "
             "includes the cold SCF")
-    wall, device_ms, n_kernels, top = profile_steps(force, w)
-    log(f"profile (3 warm steps, profiler on): {wall:.3f} ms/step wall, "
-        f"{device_ms:.3f} ms/step device busy ({100 * device_ms / wall:.1f}%),"
-        f" {n_kernels:.0f} device kernels/step; top by device time:")
-    for key, ms_k, count in top:
-        log(f"  {ms_k:8.4f} ms/step  x{count:<4d} {key}")
+    ms_ff, times_ff, _ = time_runs(lambda n: run_ff(ff, w, n))
+    ms_ff_plain, times_ff_plain, _ = time_runs(lambda n: run_ff(ff_plain, w, n))
+    log(f"phase 4 [{card}]: full-force-field step: kernel path {ms_ff:.3f} "
+        f"ms/step ({[round(t, 3) for t in times_ff]}), plain path "
+        f"{ms_ff_plain:.3f} ms/step ({[round(t, 3) for t in times_ff_plain]})"
+        f"; c_list fit steps: kernel {[round(v, 3) for v in ff_fit_ms['kernel']]}"
+        f" ms, plain f32 {[round(v, 3) for v in ff_fit_ms['plain32']]} ms")
+    for name, run in (
+            ("md", lambda n: run_steps(force, w, w["positions"], n)),
+            ("fullff", lambda n: run_ff(ff, w, n))):
+        wall, device_ms, n_kernels, top = profile_steps(run, name)
+        log(f"profile {name} (3 warm steps, profiler on): {wall:.3f} ms/step "
+            f"wall, {device_ms:.3f} ms/step device busy "
+            f"({100 * device_ms / wall:.1f}%), {n_kernels:.0f} device "
+            "kernels/step; top by device time:")
+        for key, ms_k, count in top:
+            log(f"  {ms_k:8.4f} ms/step  x{count:<4d} {key}")
     time_kernels(record)
     for name, r in record.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms/call")
         log(f"  {name}: kernel {r['ms']:.4f} ms/call ({r['device_ms']:.4f} ms "
             f"device), plain {r['plain_ms']:.4f} ms/call "
-            f"({r['plain_device_ms']:.4f} ms device)")
+            f"({r['plain_device_ms']:.4f} ms device), one PyTorch call {lib}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=r["launches"],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"])
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
                for name, r in record.items()]
+    log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

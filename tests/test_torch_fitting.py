@@ -61,7 +61,7 @@ def test_optax_adam_state_carries_across():
             adam_state.count, ps))
         return optimizer
 
-    start = convert_params({"q": np.asarray(params["q"])})
+    start = convert_params({"q": np.asarray(params["q"])}, device="cpu")
     assert start["q"].requires_grad and start["q"].dtype == torch.float64
     result = fit(t_loss, start, [None] * 2, optimizer=carried, log_every=0)
     for _ in range(2):
@@ -133,7 +133,8 @@ def _pol_potential(scf):
     s = water(n_side=2, seed=8)
     force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
                          s["covalent_map"], 4.0, 1e-4, 2, lpol=True,
-                         config=EngineConfig(scf=scf), dtype=torch.float64)
+                         config=EngineConfig(scf=scf), device="cpu",
+                         dtype=torch.float64)
     pairs = dense_pairs(s["positions"], s["box"], 4.0)
     sc = t64(SCALES)
 

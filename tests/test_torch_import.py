@@ -11,6 +11,8 @@ CHECK = """
 import sys
 import admp_tpu_torch
 import admp_tpu_torch.convert, admp_tpu_torch.models.pme
+import admp_tpu_torch.models.dispersion, admp_tpu_torch.ops.shortrange
+import admp_tpu_torch.ops.neighborlist, admp_tpu_torch.ops.dispersion
 import admp_tpu_torch.fitting, admp_tpu_torch.checkpoint
 import admp_tpu_torch.ops.cuda.pairs, admp_tpu_torch.ops.cuda.spread
 from admp_tpu_torch.ops.cuda import build

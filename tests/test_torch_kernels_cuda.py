@@ -14,22 +14,29 @@ version in float64 (second derivatives in float32 have a floor of their own;
 P.hvp_directions keeps the direction off the Thole parameters of
 zero-polarizability sites, where float32 keeps no digit), a central
 difference of K2 within 1e-2, the spread 1e-5 max|mesh| (atomic summation
-order), the gather bit for bit.
+order), the gather bit for bit, the three-channel spread's autograd and the
+dispersion force (energy 1e-5 relative, forces and dE/dc_list 1e-4 relative
+RMSE) against their plain paths.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from admp_tpu_torch import ADMPPmeForce, EngineConfig, SCFConfig
-from admp_tpu_torch import convert_cart2harm, neighbor_list_dense, water_system
+from admp_tpu_torch import ADMPDispPmeForce, ADMPPmeForce, EngineConfig, SCFConfig
+from admp_tpu_torch import convert_cart2harm, neighbor_list_cell, neighbor_list_dense
+from admp_tpu_torch import water_system
 from admp_tpu_torch.models.pme import _pair_indices, _pair_scalars
 from admp_tpu_torch.ops.cuda import pairs as P
 from admp_tpu_torch.ops.cuda import spread as S
 from admp_tpu_torch.ops.exclusions import scale_for_distance
 from admp_tpu_torch.ops.frames import local_frames_components
 from admp_tpu_torch.ops.harmonics import rot_local2global_components
-from admp_tpu_torch.ops.reciprocal import atom_spread_alpha, spread_points_separable
+from admp_tpu_torch.ops.reciprocal import (
+    atom_spread_alpha,
+    multi_stencil,
+    spread_points_separable,
+)
 
 pytestmark = pytest.mark.cuda
 SCALES = [0.0, 0.3, 0.7, 1.0, 1.0]
@@ -173,7 +180,7 @@ def test_pair_kernel_autograd_is_first_order(dev, kind, lmax):
         torch.autograd.grad(hvp[0].sum(), leaves[0])
 
 
-@pytest.mark.parametrize("order,channels", [(6, 1), (4, 1), (6, 3)])
+@pytest.mark.parametrize("order,channels", [(6, 1), (4, 1), (6, 3), (4, 3)])
 def test_spread_and_gather_match_plain(dev, order, channels):
     _, pos, box, q, _, _ = _system(dev)
     grid = (40, 36, 48)
@@ -208,6 +215,63 @@ def test_spread_functions_are_mutual_adjoints(dev):
                                 create_graph=True)
     (h2,) = torch.autograd.grad(h1.sum(), pts)
     assert _rel(g1, h1) < 1e-5 and _rel(g2, h2) < 1e-5
+
+
+@pytest.mark.parametrize("order", [4, 6])
+def test_three_channel_spread_autograd_matches_plain(dev, order):
+    """SpreadFn/GatherFn at C=3 on the dispersion stencil: the mesh, the
+    stencil gradient (K6) and its second derivative (K4 again) against the
+    plain path; launches counted per (order, C)."""
+    s, pos, box, _, _, _ = _system(dev)
+    grid = (40, 36, 48)
+    c = torch.tensor(s["c_list"], device=dev, dtype=torch.float32)
+    m_u0, pts = multi_stencil(pos, box, c, grid, order)
+    pts = pts.detach().requires_grad_(True)
+    w = torch.randn((3, *grid), device=dev)
+    out = {}
+    for method in ("cuda", "torch"):
+        before = (S.launch_spread.by_shape[order, 3],
+                  S.launch_gather.by_shape[order, 3])
+        mesh = S.spread(m_u0, pts, grid, order, method=method)
+        (g1,) = torch.autograd.grad((mesh * mesh * w).sum(), pts,
+                                    create_graph=True)
+        (g2,) = torch.autograd.grad(g1.sum(), pts)
+        after = (S.launch_spread.by_shape[order, 3],
+                 S.launch_gather.by_shape[order, 3])
+        assert (after[0] > before[0] and after[1] > before[1]) == (
+            method == "cuda")
+        out[method] = (mesh, g1, g2)
+    for a, b in zip(out["cuda"], out["torch"]):
+        assert _rel(a, b) < 1e-5
+
+
+@pytest.mark.parametrize("order", [4, 6])
+def test_dispersion_force_kernels_match_plain(dev, order):
+    """ADMPDispPmeForce on the C=3 kernels against its plain path: energy,
+    forces and dE/dc_list; the cell list on the card is the CPU's."""
+    s, pos, box, _, _, _ = _system(dev)
+    nl = neighbor_list_cell(pos, box, 4.0)
+    cpu = neighbor_list_cell(pos.cpu(), box.cpu(), 4.0)
+    assert torch.equal(nl.pairs.cpu(), cpu.pairs)
+    c = torch.tensor(s["c_list"], device=dev, dtype=torch.float32)
+    sc = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0], device=dev)
+    out = {}
+    for method in ("auto", "torch"):
+        force = ADMPDispPmeForce(
+            s["box"], s["covalent_map"], 4.0, 1e-4, 10, device=dev,
+            config=EngineConfig(cache_influence=True, disp_spread_order=order,
+                                spread_method=method))
+        before = S.launch_gather.by_shape[order, 3]
+        e, g = force.get_forces(pos, box, nl, c, sc)
+        c_req = c.clone().requires_grad_(True)
+        (gc,) = torch.autograd.grad(force.get_energy(pos, box, nl, c_req, sc),
+                                    c_req)
+        assert (S.launch_gather.by_shape[order, 3] > before) == (
+            method == "auto")
+        out[method] = (e, g, gc)
+    (e_k, g_k, c_k), (e_p, g_p, c_p) = out["auto"], out["torch"]
+    assert abs(float(e_k) - float(e_p)) <= 1e-5 * abs(float(e_p))
+    assert _rel(g_k, g_p) < 1e-4 and _rel(c_k, c_p) < 1e-4
 
 
 def test_force_step_kernels_match_plain(dev):

@@ -30,11 +30,11 @@ def _setup(lpol, lmax=2, scf=None, seed=4, cache=True):
     jf = JForce(jnp.asarray(s["box"]), s["axis_types"], s["axis_indices"],
                 s["covalent_map"], RC, ETHRESH, lmax=lmax, lpol=lpol,
                 config=cfg)
-    tf = force_from_jax(jf, s["box"], dtype=torch.float64)
+    tf = force_from_jax(jf, s["box"], device="cpu", dtype=torch.float64)
     s["pairs"] = dense_pairs(s["positions"], s["box"], RC)
     n_h = (lmax + 1) ** 2
     st = convert_state(
-        positions=s["positions"], box=s["box"], pairs=s["pairs"],
+        device="cpu", positions=s["positions"], box=s["box"], pairs=s["pairs"],
         q_local=s["q_local"][:, :n_h], pol=s["pol"], tholes=s["tholes"],
         m_scales=SCALES, p_scales=SCALES, d_scales=SCALES)
     return s, jf, tf, st
@@ -142,7 +142,7 @@ def test_convert_state_and_writable_grid():
     assert st["pairs"].dtype == torch.int64
     assert st["kappa"] == 0.5 and st["K3"] == 96
     with pytest.raises(ValueError, match="unknown field"):
-        convert_state(charges=np.zeros(3))
+        convert_state(device="cpu", charges=np.zeros(3))
     # K1..K3 and kappa are writable, as on admp_tpu's force
     s, jf, tf, st = _setup(False, cache=False)
     jf.K3 = tf.K3 = 32
@@ -154,6 +154,29 @@ def test_convert_state_and_writable_grid():
                               "m_scales")]
     ej, et = jf.get_energy(*j_args), tf.get_energy(*t_args)
     assert abs(float(et) - float(ej)) <= 1e-9 * abs(float(ej))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no CUDA device an entry point called without ``device`` raises:
+    it never falls back to the CPU; ``device='cpu'`` must be asked for."""
+    from admp_tpu_torch import ADMPDispPmeForce, generate_pairwise_interaction
+    from admp_tpu_torch import tt_damping_qq_c6_kernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = water(n_side=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                     s["covalent_map"], RC, ETHRESH, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ADMPDispPmeForce(s["box"], s["covalent_map"], RC, ETHRESH, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_pairwise_interaction(tt_damping_qq_c6_kernel,
+                                      s["covalent_map"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_state(positions=s["positions"])
+    force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                         s["covalent_map"], RC, ETHRESH, 2, device="cpu")
+    assert force.device.type == "cpu"
 
 
 def test_unimplemented_options_raise():
@@ -171,5 +194,5 @@ def test_unimplemented_options_raise():
     s = water(n_side=2)
     force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
                          s["covalent_map"], RC, ETHRESH, 2, lpol=True,
-                         config=EngineConfig(pair_kernel="cuda"))
+                         config=EngineConfig(pair_kernel="cuda"), device="cpu")
     assert force.scf_config.exact_adjoint

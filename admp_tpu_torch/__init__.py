@@ -3,8 +3,9 @@
 It runs the multipolar PME energy+force step, fixed or with Thole-polarizable
 induced dipoles (Feynman-Hellmann or exact implicit-adjoint gradients), the
 full force field of dispersion PME (C6/C8/C10) and Tang-Toennies short range
-beside it, dense and cell neighbor lists, and force-field fitting
-(fitting.py, checkpoint.py), with its pair, spread and gather stages on
+beside it, dense and cell neighbor lists, dense or sparse exclusion tables
+for large boxes, and force-field fitting (fitting.py, checkpoint.py), with
+its pair, spread and gather stages on
 hand-written CUDA kernels (ops/cuda, sources in csrc/) for float32 tensors on
 the card, and on plain PyTorch elsewhere. The entry points work on the card
 unless the caller asks for the CPU. admp_tpu (JAX) is the reference it is

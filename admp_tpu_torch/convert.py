@@ -1,7 +1,8 @@
 """Hand admp_tpu's parameters and state to the port.
 
 ``convert_state`` turns arrays (numpy, or anything ``np.asarray`` reads, such
-as JAX arrays) into the port's tensors on a device and dtype;
+as JAX arrays) into the port's tensors on a device and dtype, and an
+admp_tpu ``SparseExclusions`` into the port's;
 ``force_from_jax`` and ``disp_force_from_jax`` build a port ``ADMPPmeForce``
 or ``ADMPDispPmeForce`` that copies an admp_tpu force object's kappa, K1..K3,
 pmax and configuration, so the two packages compute the same thing.
@@ -22,6 +23,7 @@ import torch
 from admp_tpu_torch.models.dispersion import ADMPDispPmeForce
 from admp_tpu_torch.models.pme import ADMPPmeForce
 from admp_tpu_torch.ops.cuda import resolve_device
+from admp_tpu_torch.ops.exclusions import SparseExclusions
 from admp_tpu_torch.settings import EngineConfig, SCFConfig
 
 FLOAT_FIELDS = ("positions", "box", "q_local", "pol", "tholes", "m_scales",
@@ -38,6 +40,20 @@ def _copy(a, device, dtype):
     return torch.tensor(np.array(a, dtype=np.float64), device=device).to(dtype)
 
 
+def _is_sparse_map(covalent):
+    return all(hasattr(covalent, k) for k in ("idx", "dist", "n_atoms"))
+
+
+def covalent_map_from_jax(covalent):
+    """admp_tpu's covalent map on the host: its SparseExclusions (the
+    ``idx``, ``dist`` and ``n_atoms`` of the pytree) as the port's, or a
+    dense map as a numpy array."""
+    if _is_sparse_map(covalent):
+        return SparseExclusions(np.asarray(covalent.idx),
+                                np.asarray(covalent.dist), covalent.n_atoms)
+    return np.asarray(covalent)
+
+
 def convert_state(device="cuda", dtype=torch.float64, **arrays):
     """Convert admp_tpu arrays to port tensors.
 
@@ -45,13 +61,16 @@ def convert_state(device="cuda", dtype=torch.float64, **arrays):
     scales, u_ind, the dispersion coefficients c_list and the Tang-Toennies
     tt_a, tt_b, tt_q) become ``dtype`` tensors that own their memory; index
     fields (axis_types, axis_indices, covalent_map, pairs) become int64
-    tensors; kappa and K1..K3 become Python numbers. Returns a dict with the
-    same keys.
+    tensors, except a sparse covalent map, which becomes the port's
+    SparseExclusions on ``device``; kappa and K1..K3 become Python numbers.
+    Returns a dict with the same keys.
     """
     device = resolve_device(device)
     out = {}
     for name, value in arrays.items():
-        if name in SCALAR_FIELDS:
+        if name == "covalent_map" and _is_sparse_map(value):
+            out[name] = covalent_map_from_jax(value).to(device)
+        elif name in SCALAR_FIELDS:
             out[name] = SCALAR_FIELDS[name](np.asarray(value))
         elif name in FLOAT_FIELDS:
             out[name] = _copy(value, device, dtype)
@@ -96,13 +115,15 @@ def _copy_fields(cls, source, overrides):
 def force_from_jax(jax_force, box, device="cuda", dtype=torch.float64,
                    **overrides):
     """A port ADMPPmeForce equivalent to the admp_tpu force ``jax_force``:
-    same axis data, covalent map, cutoff, lmax, lpol, kappa, K1..K3 and the
-    configuration fields both packages have (``_engine_config``); overrides
-    replace EngineConfig or SCFConfig fields by name."""
+    same axis data, covalent map (dense or sparse), cutoff, lmax, lpol,
+    kappa, K1..K3 and the configuration fields both packages have
+    (``_engine_config``); overrides replace EngineConfig or SCFConfig fields
+    by name."""
     config = _engine_config(jax_force.config, overrides)
     force = ADMPPmeForce(
         np.asarray(box), np.asarray(jax_force.axis_type),
-        np.asarray(jax_force.axis_indices), np.asarray(jax_force.covalent_map),
+        np.asarray(jax_force.axis_indices),
+        covalent_map_from_jax(jax_force.covalent_map),
         jax_force.rc, jax_force.ethresh, jax_force.lmax, jax_force.lpol,
         config=config, device=device, dtype=dtype)
     force.kappa = float(jax_force.kappa)
@@ -115,13 +136,13 @@ def force_from_jax(jax_force, box, device="cuda", dtype=torch.float64,
 def disp_force_from_jax(jax_force, box, device="cuda", dtype=torch.float64,
                         **overrides):
     """A port ADMPDispPmeForce equivalent to the admp_tpu dispersion force
-    ``jax_force``: same covalent map (dense), cutoff, pmax, kappa, K1..K3
-    and the configuration fields both packages have (pmax_recip,
-    disp_ethresh, disp_spread_order, cache_influence, ...); overrides
-    replace EngineConfig fields by name."""
+    ``jax_force``: same covalent map (dense or sparse), cutoff, pmax,
+    kappa, K1..K3 and the configuration fields both packages have
+    (pmax_recip, disp_ethresh, disp_spread_order, cache_influence, ...);
+    overrides replace EngineConfig fields by name."""
     force = ADMPDispPmeForce(
-        np.asarray(box), np.asarray(jax_force.covalent_map), jax_force.rc,
-        jax_force.ethresh, jax_force.pmax,
+        np.asarray(box), covalent_map_from_jax(jax_force.covalent_map),
+        jax_force.rc, jax_force.ethresh, jax_force.pmax,
         config=_engine_config(jax_force.config, overrides), device=device,
         dtype=dtype)
     force.kappa = float(jax_force.kappa)

@@ -18,10 +18,11 @@
 // 4 bytes of stencil value per (atom, point, channel) and issues one f32
 // atomicAdd; consecutive threads hold consecutive z points of one atom, so
 // both the reads and the atomics of a warp hit neighbouring addresses of one
-// mesh row. The meshes of the port's paths stay in the 50 MB L2: the
+// mesh row. The meshes these serve under 'auto' stay in the 50 MB L2: the
 // electrostatic (96, 96, 128) or 128^3 mesh (4.7 / 8.4 MB, C=1, order 6) and
-// the dispersion 3 x 128^3 mesh (25 MB, C=3, order 4 or 6). The channel
-// offset ch * plane is a 64-bit product.
+// the dispersion 3 x 128^3 mesh (25 MB, C=3, order 4 or 6). A larger order-6
+// mesh (the 98k-atom box at 256^3 and 320^3) goes to the tiled pair of
+// spread_tiled.cu instead. The channel offset ch * plane is a 64-bit product.
 //
 // C interface (ctypes; each entry returns cudaGetLastError(), or -1 for an
 // unsupported (order, channels)):

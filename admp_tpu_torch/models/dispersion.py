@@ -25,7 +25,11 @@ from admp_tpu_torch.ops.ewald import (
     setup_ewald_parameters,
     setup_ewald_parameters_fft,
 )
-from admp_tpu_torch.ops.exclusions import lookup_topology_distance, scale_for_distance
+from admp_tpu_torch.ops.exclusions import (
+    as_covalent_map,
+    lookup_topology_distance,
+    scale_for_distance,
+)
 from admp_tpu_torch.ops.influence import ck_6, ck_8, ck_10
 from admp_tpu_torch.ops.reciprocal import make_disp_pme_recip
 from admp_tpu_torch.ops.selfenergy import dispersion_self_energy
@@ -78,7 +82,9 @@ class ADMPDispPmeForce:
         self.dtype = dtype
         box_np = np.asarray(box.detach().cpu() if torch.is_tensor(box) else box,
                             dtype=np.float64)
-        self.covalent_map = self._index_tensor(covalent_map)
+        # a dense (N, N) map or a SparseExclusions
+        # (admp_tpu/models/dispersion.py:100-117)
+        self.covalent_map = as_covalent_map(covalent_map, self.device)
         self.rc = rc
         self.ethresh = ethresh
         self.pmax = int(pmax)
@@ -101,7 +107,6 @@ class ADMPDispPmeForce:
         self.refresh_calculators()
 
     # inputs are taken as ADMPPmeForce takes them
-    _index_tensor = ADMPPmeForce._index_tensor
     _float = ADMPPmeForce._float
     _accept_pairs = ADMPPmeForce._accept_pairs
 

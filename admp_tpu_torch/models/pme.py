@@ -37,7 +37,12 @@ from admp_tpu_torch.ops.ewald import (
     setup_ewald_parameters,
     setup_ewald_parameters_fft,
 )
-from admp_tpu_torch.ops.exclusions import lookup_topology_distance, scale_for_distance
+from admp_tpu_torch.ops.exclusions import (
+    SparseExclusions,
+    as_covalent_map,
+    lookup_topology_distance,
+    scale_for_distance,
+)
 from admp_tpu_torch.ops.frames import local_frames_components
 from admp_tpu_torch.ops.harmonics import cart_dipole_to_harm, rot_local2global_components
 from admp_tpu_torch.ops.influence import ck_1
@@ -49,6 +54,24 @@ from admp_tpu_torch.settings import EngineConfig
 from admp_tpu_torch.utils.accmath import compensated_sum, masked_compensated_sum
 from admp_tpu_torch.utils.constants import DIELECTRIC
 from admp_tpu_torch.utils.linalg3 import inv3x3
+
+
+# admp_tpu's pair-chunk rule (models/pme.py:787): blocks of 2^21 pairs once a
+# list holds more than 2^22 (unchunked below: chunking was slower at 1.6M)
+PAIR_CHUNK, PAIR_CHUNK_ABOVE = 1 << 21, 1 << 22
+
+
+def pair_chunk_for(pairs):
+    return PAIR_CHUNK if pairs.shape[0] > PAIR_CHUNK_ABOVE else None
+
+
+def _sum_pair_chunks(energy_of, pairs, pair_chunk, compensated=False):
+    """The sum of ``energy_of(block)`` over consecutive blocks of
+    ``pair_chunk`` pairs (admp_tpu's lax.map over padded blocks; a ragged
+    last block needs no padding here)."""
+    parts = torch.stack([energy_of(pairs[k:k + pair_chunk])
+                         for k in range(0, pairs.shape[0], pair_chunk)])
+    return compensated_sum(parts) if compensated else parts.sum()
 
 
 def _pair_indices(pairs, n):
@@ -66,10 +89,18 @@ def _pair_scalars(kappa, box):
 def pme_real_energy(positions, box, pairs, q_global, u_ind_harm, pol, tholes,
                     m_scales, p_scales, covalent_map, kappa, lmax: int,
                     lpol: bool, compensated: bool = False,
-                    pair_kernel: str = "auto"):
+                    pair_kernel: str = "auto", pair_chunk: int | None = None):
     """Real-space multipolar Ewald energy over a padded pair list (pairs with
     i >= j are padding). ``pair_kernel`` picks the CUDA pair kernel or the
-    plain component path (ops/cuda.use_kernel)."""
+    plain component path (ops/cuda.use_kernel); ``pair_chunk`` sums over
+    blocks of that many pairs."""
+    if pair_chunk is not None and pairs.shape[0] > pair_chunk:
+        return _sum_pair_chunks(
+            lambda blk: pme_real_energy(
+                positions, box, blk, q_global, u_ind_harm, pol, tholes,
+                m_scales, p_scales, covalent_map, kappa, lmax, lpol,
+                compensated, pair_kernel),
+            pairs, pair_chunk, compensated)
     n = positions.shape[0]
     i, j, mask = _pair_indices(pairs, n)
     nbond = lookup_topology_distance(covalent_map, i, j)
@@ -109,9 +140,15 @@ def pme_real_energy(positions, box, pairs, q_global, u_ind_harm, pol, tholes,
 
 def pme_real_uu_energy(positions, box, pairs, u_ind_harm, pol, tholes,
                        p_scales, covalent_map, kappa,
-                       pair_kernel: str = "auto"):
+                       pair_kernel: str = "auto", pair_chunk: int | None = None):
     """Real-space induced-induced energy only (the u-quadratic slice of the
     polarizable pair energy), for the SCF matvec."""
+    if pair_chunk is not None and pairs.shape[0] > pair_chunk:
+        return _sum_pair_chunks(
+            lambda blk: pme_real_uu_energy(
+                positions, box, blk, u_ind_harm, pol, tholes, p_scales,
+                covalent_map, kappa, pair_kernel),
+            pairs, pair_chunk)
     n = positions.shape[0]
     i, j, mask = _pair_indices(pairs, n)
     pscale = scale_for_distance(p_scales,
@@ -140,7 +177,8 @@ def make_induced_quadratic_energy(covalent_map, kappa, grid_shape,
                                   config: EngineConfig, static_box=None):
     """E_uu(v): the exactly-u-quadratic part of the polarizable energy, whose
     v-gradient is A v. Terms: real-space udud, |S(u)|^2 on an lmax=1 mesh,
-    the u self energy and the polarization penalty."""
+    the u self energy and the polarization penalty. ``covalent_map`` is a
+    dense map or a SparseExclusions on the pairs' device."""
     recip_uu = make_pme_recip(
         ck_1, kappa, grid_shape, 1, DIELECTRIC,
         spread_method=config.spread_method,
@@ -152,7 +190,7 @@ def make_induced_quadratic_energy(covalent_map, kappa, grid_shape,
         u_harm = cart_dipole_to_harm(u_ind_cart)
         e = pme_real_uu_energy(positions, box, pairs, u_harm, pol, tholes,
                                p_scales, covalent_map, kappa,
-                               config.pair_kernel)
+                               config.pair_kernel, pair_chunk_for(pairs))
         q_u = torch.cat([u_harm.new_zeros(u_harm.shape[0], 1), u_harm], dim=-1)
         e = e + recip_uu(positions, box, q_u)
         e = e + pme_self_energy(q_u, kappa, 1)
@@ -166,10 +204,11 @@ def energy_pme(positions, box, pairs, q_local, u_ind_cart, pol, tholes,
                m_scales, p_scales, d_scales, covalent_map, axis_types,
                axis_indices, pme_recip_fn, kappa, lmax: int, lpol: bool,
                config: EngineConfig | None = None,
-               return_terms: bool = False):
+               return_terms: bool = False, pair_chunk: int | None = None):
     """Total multipolar PME energy: real + reciprocal + self
     (+ polarization). ``u_ind_cart`` are Cartesian induced dipoles;
-    ``d_scales`` is accepted for API parity and unused, as in admp_tpu."""
+    ``d_scales`` is accepted for API parity and unused, as in admp_tpu.
+    ``pair_chunk``: the real-space sum over blocks of that many pairs."""
     del d_scales
     config = config or EngineConfig()
     if lmax > 0:
@@ -193,7 +232,8 @@ def energy_pme(positions, box, pairs, q_local, u_ind_cart, pol, tholes,
     e_real = pme_real_energy(
         positions, box, pairs, q_global, u_harm, pol, tholes, m_scales,
         p_scales, covalent_map, kappa, lmax_eff, lpol,
-        compensated=config.compensated_sums, pair_kernel=config.pair_kernel)
+        compensated=config.compensated_sums, pair_kernel=config.pair_kernel,
+        pair_chunk=pair_chunk)
     if lpol and lmax == 0:
         # the engine spreads charges only; the dipoles go on their own mesh
         e_recip = pme_recip_fn(positions, box, q_global[:, :1], u_harm)
@@ -236,8 +276,12 @@ class ADMPPmeForce:
                             dtype=np.float64)
         self.axis_type = self._index_tensor(axis_type)
         self.axis_indices = self._index_tensor(axis_indices)
-        self.covalent_map = self._index_tensor(covalent_map)
-        self.n_atoms = int(self.covalent_map.shape[0])
+        # a dense (N, N) map or a SparseExclusions (admp_tpu/models/pme.py
+        # :695-702); N comes from either
+        self.covalent_map = as_covalent_map(covalent_map, self.device)
+        self.n_atoms = (self.covalent_map.n_atoms
+                        if isinstance(self.covalent_map, SparseExclusions)
+                        else int(self.covalent_map.shape[0]))
         self.rc = rc
         self.ethresh = ethresh
         self.lmax = int(lmax)
@@ -324,12 +368,13 @@ class ADMPPmeForce:
     # ------------------------------------------------------------------
     def _fixed_terms(self, positions, box, pairs, Q_local, mScales,
                      return_terms=False):
+        pairs = self._accept_pairs(pairs)
         return energy_pme(
-            self._float(positions), self._float(box),
-            self._accept_pairs(pairs), self._float(Q_local), None, None,
-            None, self._float(mScales), None, None, self.covalent_map,
-            self.axis_type, self.axis_indices, self.pme_recip, self._kappa,
-            self.lmax, False, self.config, return_terms=return_terms)
+            self._float(positions), self._float(box), pairs,
+            self._float(Q_local), None, None, None, self._float(mScales),
+            None, None, self.covalent_map, self.axis_type, self.axis_indices,
+            self.pme_recip, self._kappa, self.lmax, False, self.config,
+            return_terms=return_terms, pair_chunk=pair_chunk_for(pairs))
 
     def _fixed_energy(self, positions, box, pairs, Q_local, mScales):
         return self._fixed_terms(positions, box, pairs, Q_local, mScales)
@@ -366,7 +411,8 @@ class ADMPPmeForce:
             u_ind, inp["pol"], inp["tholes"], inp["mScales"], inp["pScales"],
             inp["dScales"], self.covalent_map, self.axis_type,
             self.axis_indices, self.pme_recip, self._kappa, self.lmax, True,
-            self.config, return_terms=return_terms)
+            self.config, return_terms=return_terms,
+            pair_chunk=pair_chunk_for(inp["pairs"]))
 
     def field(self, u, inp, create_graph=False):
         """dE/du at ``u``: one torch.autograd.grad of the total energy."""

@@ -6,6 +6,9 @@ from __future__ import annotations
 import torch
 
 METHODS = ("auto", "cuda", "torch")
+# the spread also takes 'cuda2d', the tiled pair (K5 spread, K7 gather), the
+# port's name for admp_tpu's 'pallas2d'
+SPREAD_METHODS = ("auto", "cuda", "cuda2d", "torch")
 
 
 def resolve_device(device) -> torch.device:
@@ -20,22 +23,24 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def use_kernel(method: str, x: torch.Tensor, what: str) -> bool:
+def use_kernel(method: str, x: torch.Tensor, what: str,
+               methods=METHODS) -> bool:
     """Dispatch rule shared by every kernel wrapper.
 
     ``'auto'``: the kernel for a float32 CUDA tensor, the plain version
     otherwise (admp_tpu never takes Pallas in float64 either).
-    ``'cuda'``: the kernel; raises for a tensor it cannot take.
+    ``'cuda'`` (and, for the spread, ``'cuda2d'``): a kernel; raises for a
+    tensor it cannot take.
     ``'torch'``: the plain version.
     """
+    if method not in methods:
+        raise ValueError(f"{what}={method!r}: expected one of {methods}")
     if method == "torch":
         return False
-    if method == "cuda":
-        if not x.is_cuda:
-            raise ValueError(f"{what}='cuda' needs CUDA tensors, got {x.device}")
-        if x.dtype != torch.float32:
-            raise ValueError(f"{what}='cuda' needs float32, got {x.dtype}")
-        return True
-    if method != "auto":
-        raise ValueError(f"{what}={method!r}: expected one of {METHODS}")
-    return x.is_cuda and x.dtype == torch.float32
+    if method == "auto":
+        return x.is_cuda and x.dtype == torch.float32
+    if not x.is_cuda:
+        raise ValueError(f"{what}={method!r} needs CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{what}={method!r} needs float32, got {x.dtype}")
+    return True

@@ -1,4 +1,5 @@
-"""PME spread (K4) and its adjoint gather (K6), in CUDA.
+"""PME spread (K4) and its adjoint gather (K6), and the tiled pair for large
+meshes (K5, K7), in CUDA.
 
 Replaces admp_tpu/ops/pallas/spread.py ``_make_spread_kernel`` (:210, via
 ``_make_spread_dma_kernel`` :349 and ``spread_blocks`` :537) and
@@ -21,7 +22,20 @@ the kernels.
 The port's paths run them at (order 6, C=1) for the electrostatic energy
 mesh and at (order 4 or 6, C=3) for the dispersion C6/C8/C10 mesh
 (admp_tpu's ``spread_blocks_multi`` :629); ``launch_spread.by_shape`` and
-``launch_gather.by_shape`` count the launches per (order, C).
+``launch_gather.by_shape`` count the launches per (order, C). They serve the
+meshes that fit the card's L2 cache; under 'auto' a larger order-6 mesh (the
+98k-atom box at 256^3 and 320^3) goes to the tiled pair below instead
+(ops/reciprocal.resolve_spread_method).
+
+K5 and K7 (csrc/spread_tiled.cu) replace admp_tpu's 2-D blocked spread
+``_pallas_spread2d_impl`` (:718) and its windowed gather
+``_make_gather_kernel_mxu`` (:949). ``tile_bins`` bins the atoms by the mesh
+tile of their wrapped base index, in plain PyTorch shared by the kernels and
+their plain versions ``spread_tiled_torch`` / ``gather_tiled_torch``, which
+accumulate and read per tile over the same bins. ``SpreadTiledFn`` and
+``GatherTiledFn`` are each other's backward (admp_tpu's
+``spread_blocks_2d_multi`` and ``gather_blocks_2d``, :1400-1473); on a CPU
+tensor they take the plain versions.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ import ctypes
 
 import torch
 
-from admp_tpu_torch.ops.cuda import build, use_kernel
+from admp_tpu_torch.ops.cuda import SPREAD_METHODS, build, use_kernel
 
 ORDERS = (4, 6)
 CHANNELS = (1, 3)
@@ -194,11 +208,244 @@ class GatherFn(torch.autograd.Function):
         return None, g_mesh, None, None
 
 
-def spread(m_u0, q_points, grid_shape, order: int, method: str = "auto"):
-    """(N, C, order^3) -> (C, K1, K2, K3): the kernel or the plain version,
-    by ``method`` (see ops/cuda.use_kernel)."""
+
+
+# ---------------------------------------------------------------------------
+# The tiled pair (K5, K7): binning, plain versions, launchers
+# ---------------------------------------------------------------------------
+
+# core tile (x, y, z) of csrc/spread_tiled.cu; the kernels refuse another
+TILE = (8, 8, 32)
+
+
+class TileBins:
+    """Atoms binned by the mesh tile of their wrapped base index.
+
+    ``base`` (N, 3) int32: b = (m_u0 - order/2) mod K, in bin order;
+    ``perm`` (N,) int32: the atom in each sorted slot (a stable sort, so
+    atoms of one bin keep their order); ``offsets`` (n_tiles + 1,) int32:
+    where each bin starts; ``n_tiles``: tiles per axis."""
+
+    def __init__(self, base, perm, offsets, n_tiles, tile, order):
+        self.base, self.perm, self.offsets = base, perm, offsets
+        self.n_tiles, self.tile, self.order = n_tiles, tile, order
+
+
+def tile_bins(m_u0, grid_shape, tile=TILE, order: int = 6) -> TileBins:
+    """Bin atoms by the tile of their base index, wrapped as admp_tpu wraps
+    it (spread.py:733-742); no capacity, no host sync."""
+    dev = m_u0.device
+    k = torch.tensor(grid_shape, device=dev)
+    t = torch.tensor(tile, device=dev)
+    base = torch.remainder(m_u0.long() - order // 2, k)
+    nt = tuple(-(-kk // tt) for kk, tt in zip(grid_shape, tile))
+    tb = torch.div(base, t, rounding_mode="floor")
+    tid = (tb[:, 0] * nt[1] + tb[:, 1]) * nt[2] + tb[:, 2]
+    tid_sorted, perm = torch.sort(tid, stable=True)
+    offsets = torch.searchsorted(
+        tid_sorted, torch.arange(nt[0] * nt[1] * nt[2] + 1, device=dev))
+    return TileBins(base[perm].to(torch.int32).contiguous(),
+                    perm.to(torch.int32), offsets.to(torch.int32), nt,
+                    tuple(tile), order)
+
+
+def _tile_windows(bins: TileBins, grid_shape):
+    """(slot (N,), local (N, order^3), window (B, R), B) for the B bins that
+    hold atoms: each sorted atom's bin slot, its stencil's flat offsets in
+    a halo'd tile window of R = prod(tile + order - 1) points, and the
+    periodic flat mesh index of every window point."""
+    order, tile, nt = bins.order, bins.tile, bins.n_tiles
+    dev = bins.base.device
+    ext = [t + order - 1 for t in tile]
+    base = bins.base.long()
+    t = torch.tensor(tile, device=dev)
+    tb = torch.div(base, t, rounding_mode="floor")
+    tid = (tb[:, 0] * nt[1] + tb[:, 1]) * nt[2] + tb[:, 2]
+    tiles, slot = torch.unique_consecutive(tid, return_inverse=True)
+    loc = base - tb * t  # (N, 3) in [0, tile)
+    d = torch.arange(order, device=dev)
+    l1, l2, l3 = (loc[:, a:a + 1] + d for a in range(3))
+    local = ((l1[:, :, None, None] * ext[1] + l2[:, None, :, None]) * ext[2]
+             + l3[:, None, None, :]).reshape(-1, order ** 3)
+    c1 = torch.div(tiles, nt[1] * nt[2], rounding_mode="floor") * tile[0]
+    c2 = torch.remainder(torch.div(tiles, nt[2], rounding_mode="floor"),
+                         nt[1]) * tile[1]
+    c3 = torch.remainder(tiles, nt[2]) * tile[2]
+    k1, k2, k3 = grid_shape
+    g1 = torch.remainder(c1[:, None] + torch.arange(ext[0], device=dev), k1)
+    g2 = torch.remainder(c2[:, None] + torch.arange(ext[1], device=dev), k2)
+    g3 = torch.remainder(c3[:, None] + torch.arange(ext[2], device=dev), k3)
+    window = ((g1[:, :, None, None] * k2 + g2[:, None, :, None]) * k3
+              + g3[:, None, None, :]).reshape(tiles.shape[0], -1)
+    return slot, local, window
+
+
+def spread_tiled_torch(bins: TileBins, q_points, grid_shape, order: int):
+    """K5's plain version: each bin's stencil values accumulated into its
+    halo'd tile window, the windows then folded onto the periodic mesh."""
+    n, n_ch = q_points.shape[:2]
+    kcube = grid_shape[0] * grid_shape[1] * grid_shape[2]
+    mesh = q_points.new_zeros(n_ch, kcube)
+    if n == 0:
+        return mesh.reshape(n_ch, *grid_shape)
+    slot, local, window = _tile_windows(bins, grid_shape)
+    r = window.shape[1]
+    flat = (slot[:, None] * r + local).reshape(-1)
+    vals = q_points[bins.perm.long()].transpose(0, 1).reshape(n_ch, -1)
+    acc = q_points.new_zeros(n_ch, window.numel()).index_add_(1, flat, vals)
+    mesh = mesh.index_add_(1, window.reshape(-1), acc)
+    return mesh.reshape(n_ch, *grid_shape)
+
+
+def gather_tiled_torch(bins: TileBins, mesh, grid_shape, order: int):
+    """K7's plain version: each bin's halo'd tile window staged from the
+    mesh, each atom's order^3 values read there and put back in atom order
+    (a pure selection, equal bit for bit to ``gather_torch``)."""
+    n_ch = mesh.shape[0]
+    n = bins.perm.shape[0]
+    out = mesh.new_empty(n, n_ch, order ** 3)
+    if n == 0:
+        return out
+    slot, local, window = _tile_windows(bins, grid_shape)
+    staged = mesh.reshape(n_ch, -1)[:, window]  # (C, B, R)
+    vals = staged.reshape(n_ch, -1)[:, slot[:, None] * window.shape[1] + local]
+    out[bins.perm.long()] = vals.transpose(0, 1)
+    return out
+
+
+def _tiled_lib():
+    lib = build.load("spread_tiled")
+    if not getattr(lib, "_admp_typed", False):
+        for fn in (lib.admp_spread_tiled, lib.admp_gather_tiled):
+            fn.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+            fn.restype = _I
+        lib._admp_typed = True
+    return lib
+
+
+def _check_bins(bins: TileBins, x, name, grid_shape, order):
+    if bins.order != order or bins.tile != TILE:
+        raise ValueError(f"bins of order {bins.order}, tile {bins.tile}; the "
+                         f"kernel takes order {order}, tile {TILE}")
+    _check(bins.base, x, name, grid_shape, order)
+    for t in (bins.perm, bins.offsets):
+        if t.dtype != torch.int32 or t.device != x.device:
+            raise ValueError("bins: int32 tensors on the mesh's device")
+
+
+def launch_spread_tiled(bins: TileBins, q_points, grid_shape, order: int):
+    """K5: (N, C, order^3) stencil values -> (C, K1, K2, K3) mesh."""
+    _check_bins(bins, q_points, "q_points", grid_shape, order)
+    n, n_ch = q_points.shape[0], q_points.shape[1]
+    if n_ch not in CHANNELS or tuple(q_points.shape) != (n, n_ch, order ** 3) \
+            or bins.base.shape[0] != n:
+        raise ValueError(f"q_points: shape {tuple(q_points.shape)}, expected "
+                         f"(N, C in {CHANNELS}, {order ** 3})")
+    mesh = torch.empty((n_ch, *grid_shape), device=q_points.device,
+                       dtype=torch.float32)
+    status = _tiled_lib().admp_spread_tiled(
+        bins.base.data_ptr(), bins.perm.data_ptr(), bins.offsets.data_ptr(),
+        q_points.data_ptr(), mesh.data_ptr(), n_ch, order, *grid_shape, *TILE,
+        torch.cuda.current_stream(mesh.device).cuda_stream)
+    build.check(status, f"tiled spread (order {order}, {n_ch} channels)")
+    launch_spread_tiled.launches += 1
+    launch_spread_tiled.by_shape[order, n_ch] += 1
+    return mesh
+
+
+launch_spread_tiled.launches = 0
+launch_spread_tiled.by_shape = dict.fromkeys(SHAPES, 0)
+
+
+def launch_gather_tiled(bins: TileBins, mesh, grid_shape, order: int):
+    """K7: (C, K1, K2, K3) mesh -> (N, C, order^3) stencil values."""
+    _check_bins(bins, mesh, "mesh", grid_shape, order)
+    n_ch = mesh.shape[0]
+    if n_ch not in CHANNELS or tuple(mesh.shape[1:]) != tuple(grid_shape):
+        raise ValueError(f"mesh: shape {tuple(mesh.shape)}, expected "
+                         f"(C in {CHANNELS}, {tuple(grid_shape)})")
+    n = bins.base.shape[0]
+    out = torch.empty((n, n_ch, order ** 3), device=mesh.device,
+                      dtype=torch.float32)
+    if n == 0:
+        return out
+    status = _tiled_lib().admp_gather_tiled(
+        bins.base.data_ptr(), bins.perm.data_ptr(), bins.offsets.data_ptr(),
+        mesh.data_ptr(), out.data_ptr(), n_ch, order, *grid_shape, *TILE,
+        torch.cuda.current_stream(mesh.device).cuda_stream)
+    build.check(status, f"tiled gather (order {order}, {n_ch} channels)")
+    launch_gather_tiled.launches += 1
+    launch_gather_tiled.by_shape[order, n_ch] += 1
+    return out
+
+
+launch_gather_tiled.launches = 0
+launch_gather_tiled.by_shape = dict.fromkeys(SHAPES, 0)
+
+
+class SpreadTiledFn(torch.autograd.Function):
+    """Spread on K5 (its plain version for a CPU tensor); its backward is
+    GatherTiledFn over the same bins."""
+
+    @staticmethod
+    def forward(ctx, q_points, bins, grid_shape, order):
+        ctx.bins, ctx.grid_shape, ctx.order = bins, grid_shape, order
+        if q_points.is_cuda:
+            return launch_spread_tiled(bins, q_points, grid_shape, order)
+        return spread_tiled_torch(bins, q_points, grid_shape, order)
+
+    @staticmethod
+    def backward(ctx, g_mesh):
+        g_q = GatherTiledFn.apply(g_mesh.contiguous(), ctx.bins,
+                                  ctx.grid_shape, ctx.order)
+        return g_q, None, None, None
+
+
+class GatherTiledFn(torch.autograd.Function):
+    """Gather on K7 (its plain version for a CPU tensor); its backward is
+    SpreadTiledFn over the same bins."""
+
+    @staticmethod
+    def forward(ctx, mesh, bins, grid_shape, order):
+        ctx.bins, ctx.grid_shape, ctx.order = bins, grid_shape, order
+        if mesh.is_cuda:
+            return launch_gather_tiled(bins, mesh, grid_shape, order)
+        return gather_tiled_torch(bins, mesh, grid_shape, order)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        g_mesh = SpreadTiledFn.apply(g_out.contiguous(), ctx.bins,
+                                     ctx.grid_shape, ctx.order)
+        return g_mesh, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def spread_route(m_u0, q_points, grid_shape, order: int, route: str):
+    """(N, C, order^3) -> (C, K1, K2, K3) on a resolved route: ``'cuda'``
+    (K4/K6), ``'cuda2d'`` (K5/K7 on a CUDA tensor, their plain versions on
+    a CPU one) or ``'torch'`` (``index_add_``)."""
     grid_shape = tuple(int(k) for k in grid_shape)
-    if use_kernel(method, q_points, "spread_method"):
+    if route == "cuda":
         return SpreadFn.apply(m_u0.to(torch.int32).contiguous(),
                               q_points.contiguous(), grid_shape, order)
-    return spread_torch(m_u0, q_points, grid_shape, order)
+    if route == "cuda2d":
+        bins = tile_bins(m_u0, grid_shape, TILE, order)
+        return SpreadTiledFn.apply(q_points.contiguous(), bins, grid_shape,
+                                   order)
+    if route == "torch":
+        return spread_torch(m_u0, q_points, grid_shape, order)
+    raise ValueError(f"route={route!r}: 'cuda', 'cuda2d' or 'torch'")
+
+
+def spread(m_u0, q_points, grid_shape, order: int, method: str = "auto"):
+    """(N, C, order^3) -> (C, K1, K2, K3) by ``method`` (ops/cuda.use_kernel):
+    ``'auto'`` takes K4 for a float32 CUDA tensor, ``'cuda'`` K4,
+    ``'cuda2d'`` K5, ``'torch'`` the plain version."""
+    if not use_kernel(method, q_points, "spread_method", SPREAD_METHODS):
+        return spread_route(m_u0, q_points, grid_shape, order, "torch")
+    return spread_route(m_u0, q_points, grid_shape, order,
+                        "cuda2d" if method == "cuda2d" else "cuda")

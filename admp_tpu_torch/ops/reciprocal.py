@@ -3,11 +3,12 @@ convolution (admp_tpu/ops/reciprocal.py, plain precision only).
 
 E = prefactor sum_k C(|k|^2) |S_k|^2 / theta_k^2 with S_k = FFT(Q_mesh), over
 the rfft half-spectrum with Hermitian multiplicity weights. The spread runs
-on the CUDA kernel pair of ops/cuda/spread.py or on ``index_add_``
-(``spread_method``). The electrostatic engine (``make_pme_recip``) spreads
-one multipolar channel and excludes the gamma point; the dispersion engine
-(``make_disp_pme_recip``) spreads the C6/C8/C10 channels in one pass and
-includes it.
+on a CUDA kernel pair of ops/cuda/spread.py (K4/K6, or K5/K7 for a mesh
+larger than the card's L2) or on ``index_add_`` (``spread_method``,
+``resolve_spread_method``). The electrostatic engine (``make_pme_recip``)
+spreads one multipolar channel and excludes the gamma point; the dispersion
+engine (``make_disp_pme_recip``) spreads the C6/C8/C10 channels in one pass
+and includes it.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from admp_tpu_torch.ops import bsplines
 from admp_tpu_torch.ops.cuda import spread as spread_ops
-from admp_tpu_torch.ops.cuda import use_kernel
+from admp_tpu_torch.ops.cuda import SPREAD_METHODS, use_kernel
 from admp_tpu_torch.utils.accmath import compensated_sum
 from admp_tpu_torch.utils.linalg3 import det3x3, inv3x3
 
@@ -114,27 +115,67 @@ def atom_spread_alpha(positions, box, q_harm, grid_shape, lmax: int,
     return m_u0, u0, alpha
 
 
-def resolve_spread_method(method: str, x, order: int) -> str:
-    """``'auto'`` takes the kernel for the order-6 mesh of a float32 CUDA
-    tensor and ``index_add_`` otherwise; admp_tpu's 'auto' leaves the order-4
-    matvec mesh on the XLA scatter the same way (reciprocal.py:449-464)."""
-    if method == "auto" and order != 6:
+def auto_spread_route(dtype, device_type: str, order: int, mesh_bytes: int,
+                      l2_bytes: int) -> str:
+    """The route ``'auto'`` takes: a pure function of the working type, the
+    device type, the B-spline order, the mesh's bytes and the card's L2.
+
+    A float32 CUDA mesh of order 6 goes to a kernel pair: K4/K6 while the
+    mesh fits L2 (their atomics and reads hit it), the tiled K5/K7 once it
+    does not (the 98k-atom box: 67 MB at 256^3, 131 MB at 320^3, against
+    the H100's 50 MB). This is the card's counterpart of admp_tpu's rule,
+    which leaves the 1-D slab kernel for the 2-D blocked one when the slab
+    accumulator no longer fits VMEM (reciprocal.py:449-464). Every other
+    mesh, the order-4 matvec mesh among them, stays on ``index_add_`` as it
+    stays on the XLA scatter there."""
+    if device_type != "cuda" or dtype != torch.float32 or order != 6:
         return "torch"
-    return "cuda" if use_kernel(method, x, "spread_method") else "torch"
+    return "cuda2d" if mesh_bytes > l2_bytes else "cuda"
+
+
+def resolve_spread_method(method: str, x, order: int, grid_shape,
+                          n_ch: int = 1) -> str:
+    """The route of a spread of ``x``'s stencils onto an (n_ch, *grid_shape)
+    mesh: ``'auto'`` by auto_spread_route (the L2 size read from the card),
+    ``'cuda'`` (K4/K6) and ``'cuda2d'`` (K5/K7) forced, raising for a tensor
+    the kernels cannot take, ``'torch'`` the plain path."""
+    if method == "auto":
+        if not x.is_cuda:
+            return "torch"
+        l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+        mesh_bytes = n_ch * math.prod(grid_shape) * x.element_size()
+        return auto_spread_route(x.dtype, x.device.type, order, mesh_bytes,
+                                 l2)
+    use_kernel(method, x, "spread_method", SPREAD_METHODS)
+    return method
+
+
+# admp_tpu's atom chunk on the plain scatter (reciprocal.py:913): blocks of
+# 4096 atoms above 16384; the kernel routes take every atom in one launch
+ATOM_CHUNK, ATOM_CHUNK_ABOVE = 4096, 16384
 
 
 def spread_to_mesh(positions, box, q_harm, grid_shape, lmax: int,
-                   method: str = "auto", order: int = 6):
+                   method: str = "auto", order: int = 6,
+                   atom_chunk: int | None = None):
     """Spread harmonic multipoles onto the (K1, K2, K3) charge mesh;
-    quadrupole channels carry the MPID 1/3 prefactor."""
+    quadrupole channels carry the MPID 1/3 prefactor. ``atom_chunk``: on the
+    plain route, accumulate the mesh over blocks of that many atoms, which
+    bounds the (N, order^3) stencil intermediates (admp_tpu's kernel paths
+    ignore it, and so do the port's)."""
     grid_shape = tuple(int(k) for k in grid_shape)
+    route = resolve_spread_method(method, positions, order, grid_shape)
+    n = positions.shape[0]
+    if route == "torch" and atom_chunk is not None and n > atom_chunk:
+        return sum(spread_to_mesh(positions[a:a + atom_chunk], box,
+                                  q_harm[a:a + atom_chunk], grid_shape, lmax,
+                                  "torch", order)
+                   for a in range(0, n, atom_chunk))
     m_u0, u0, alpha = atom_spread_alpha(positions, box, q_harm, grid_shape,
                                         lmax, order)
     q_points = spread_points_separable(u0, alpha, lmax, order)
-    n = q_points.shape[0]
-    mesh = spread_ops.spread(
-        m_u0, q_points.reshape(n, 1, order ** 3), grid_shape, order,
-        resolve_spread_method(method, q_points, order))
+    mesh = spread_ops.spread_route(
+        m_u0, q_points.reshape(n, 1, order ** 3), grid_shape, order, route)
     return mesh[0]
 
 
@@ -146,10 +187,11 @@ def spread_to_mesh_multi(positions, box, coeffs, grid_shape, order: int = 6,
 
     The stencil is theta (N, order^3), z fastest, times each channel's
     coefficient: the (N, C, order^3) values K4 takes. ``'auto'`` takes the
-    kernel for float32 CUDA tensors at orders 4 and 6 alike, as admp_tpu's
+    kernel K4 for float32 CUDA tensors at orders 4 and 6 alike, as admp_tpu's
     multi-channel 'auto' takes its Pallas slab kernel at either order
     (reciprocal.py:552-557); the single-channel order-6 rule of
-    ``resolve_spread_method`` does not apply here."""
+    ``resolve_spread_method`` does not apply here. ``'cuda2d'`` takes the
+    tiled K5."""
     grid_shape = tuple(int(k) for k in grid_shape)
     m_u0, q_points = multi_stencil(positions, box, coeffs, grid_shape, order)
     return spread_ops.spread(m_u0, q_points, grid_shape, order, method)
@@ -284,13 +326,16 @@ def make_pme_recip(ck_fn, kappa, grid_shape, lmax, prefactor=1.0,
         an lmax=1 mesh and added (spreading is linear)."""
         if cached is not None:
             box = _CachedInfluenceBoxGuard.apply(box)
+        atom_chunk = (ATOM_CHUNK if positions.shape[0] > ATOM_CHUNK_ABOVE
+                      else None)
         mesh = spread_to_mesh(positions, box, q_harm, grid_shape, lmax,
-                              spread_method, spread_order)
+                              spread_method, spread_order, atom_chunk)
         if u_harm is not None:
             q_u = torch.cat([u_harm.new_zeros(u_harm.shape[0], 1), u_harm],
                             dim=-1)
             mesh = mesh + spread_to_mesh(positions, box, q_u, grid_shape, 1,
-                                         spread_method, spread_order)
+                                         spread_method, spread_order,
+                                         atom_chunk)
         weight = cached if cached is not None else influence_weights(
             box.to(mesh.dtype), grid_shape, kappa, ck_fn, spread_order)
         energy = convolve_energy(mesh, weight, prefactor, compensated)

@@ -8,11 +8,14 @@ of ``index_select`` is right for any pair order.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from admp_tpu_torch.ops.cuda import resolve_device
-from admp_tpu_torch.ops.exclusions import lookup_topology_distance, scale_for_distance
+from admp_tpu_torch.ops.exclusions import (
+    as_covalent_map,
+    lookup_topology_distance,
+    scale_for_distance,
+)
 from admp_tpu_torch.ops.realspace import min_image_components
 from admp_tpu_torch.utils.constants import ANGSTROM_TO_BOHR, HARTREE_TO_KJMOL
 
@@ -61,15 +64,13 @@ def generate_pairwise_interaction(pair_int_kernel, covalent_map,
 
     ``pair_int_kernel(r, mscale, p0_i, p0_j, p1_i, p1_j, ...)`` gives the
     per-pair energies; each per-atom parameter array adds its gathered (i, j)
-    pair of arguments, in order. The dense covalent map is moved to
-    ``device`` once (the card unless the caller asks for the CPU).
+    pair of arguments, in order. The covalent map, dense or a
+    SparseExclusions, is moved to ``device`` once (the card unless the
+    caller asks for the CPU).
     ``static_args`` and ``pairs_i_sorted`` are accepted for the reference's
     signature and unused, as there."""
     del static_args, pairs_i_sorted
-    device = resolve_device(device)
-    if not torch.is_tensor(covalent_map):
-        covalent_map = torch.from_numpy(np.array(covalent_map))
-    covalent_map = covalent_map.to(device).long()
+    covalent_map = as_covalent_map(covalent_map, resolve_device(device))
 
     def pair_int(positions, box, pairs, m_scales, *atomic_params):
         mask, i, j, r, mscale = expand_pairs(positions, box, pairs,

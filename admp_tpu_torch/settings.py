@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from admp_tpu_torch.ops.cuda import METHODS
+from admp_tpu_torch.ops.cuda import METHODS, SPREAD_METHODS
 
 # admp_tpu pins its f32 matmuls to full precision because the TPU's default
 # bf16 passes destroy the Ewald cancellations (admp_tpu/settings.py:27-36:
@@ -89,7 +89,12 @@ class EngineConfig:
     forces the plain path. On the main path ``'auto'`` spreads the order-6
     energy mesh with the kernel and leaves the order-4 matvec mesh on
     ``index_add_``, as admp_tpu leaves it on the XLA scatter
-    (admp_tpu/ops/reciprocal.py:449-464).
+    (admp_tpu/ops/reciprocal.py:449-464). A float32 order-6 mesh larger than
+    the card's L2 cache (the 98k-atom box at 256^3 and 320^3) takes the
+    tiled pair, K5 spread and K7 gather, where admp_tpu's 'auto' takes its
+    2-D blocked Pallas kernel; ``spread_method='cuda2d'`` forces that pair
+    (admp_tpu's ``'pallas2d'``), ``'cuda'`` forces K4/K6.
+    (ops/reciprocal.resolve_spread_method)
 
     pairs_i_sorted: accepted for compatibility and ignored. admp_tpu uses it
     to pick a sorted segment-sum backward for the i-side row gather; the
@@ -123,12 +128,13 @@ class EngineConfig:
     scf: SCFConfig = dataclasses.field(default_factory=SCFConfig)
 
     def __post_init__(self):
-        for name in ("pair_kernel", "spread_method"):
+        for name, allowed in (("pair_kernel", METHODS),
+                              ("spread_method", SPREAD_METHODS)):
             value = getattr(self, name)
-            if value not in METHODS:
+            if value not in allowed:
                 raise ValueError(
                     f"EngineConfig.{name}={value!r}: expected one of "
-                    f"{METHODS}"
+                    f"{allowed}"
                 )
         for name in ("recip_precision", "realspace_precision",
                      "spread_precision"):

@@ -9,6 +9,7 @@ from collections import defaultdict, deque
 
 import numpy as np
 
+from admp_tpu_torch.ops.exclusions import build_sparse_exclusions
 from admp_tpu_torch.ops.frames import BISECTOR, ZTHENX
 
 # gas-phase-ish water geometry (Angstrom)
@@ -55,6 +56,16 @@ def build_covalent_map_from_bonds(bonds, n_atoms: int, max_depth: int = 6):
     return cov
 
 
+def _exclusions(kind, bonds, n_atoms):
+    if kind == "dense":
+        return build_covalent_map_from_bonds(bonds, n_atoms, 6)
+    if kind == "sparse":
+        return build_sparse_exclusions(bonds, n_atoms, 6)
+    if kind is None:
+        return None
+    raise ValueError(f"exclusions={kind!r}: 'dense', 'sparse' or None")
+
+
 def _water_template():
     h1 = np.array([_OH * np.sin(_ANG / 2), 0.0, _OH * np.cos(_ANG / 2)])
     h2 = np.array([-_OH * np.sin(_ANG / 2), 0.0, _OH * np.cos(_ANG / 2)])
@@ -91,10 +102,15 @@ def water_lattice(n_side=2, spacing=3.1, jitter=0.1, seed=0):
     return np.concatenate(positions), np.eye(3) * length
 
 
-def water_system(n_side=2, spacing=3.1, jitter=0.1, seed=0):
+def water_system(n_side=2, spacing=3.1, jitter=0.1, seed=0,
+                 exclusions="dense"):
     """Per-atom numpy arrays of the MPID water model on a synthetic lattice:
     positions, box, q_cart, axis_types, axis_indices, covalent_map, pol,
-    tholes, c_list, tt_a, tt_b, tt_q."""
+    tholes, c_list, tt_a, tt_b, tt_q.
+
+    ``exclusions``: ``'dense'`` makes ``covalent_map`` the (N, N) map (as
+    admp_tpu does), ``'sparse'`` a SparseExclusions of the same bonds and
+    depth (bonds (3m, 3m+1), (3m, 3m+2), max_depth 6), None leaves it out."""
     p = MPID_WATER
     positions, box = water_lattice(n_side, spacing, jitter, seed)
     nmol = n_side**3
@@ -126,7 +142,7 @@ def water_system(n_side=2, spacing=3.1, jitter=0.1, seed=0):
         q_cart=q_cart,
         axis_types=axis_types,
         axis_indices=axis_indices,
-        covalent_map=build_covalent_map_from_bonds(bonds, n, 6),
+        covalent_map=_exclusions(exclusions, bonds, n),
         pol=np.tile([p["pol_O"], 0.0, 0.0], nmol),
         tholes=np.tile([p["thole_O"], 0.0, 0.0], nmol),
         c_list=c_list,

@@ -5,10 +5,13 @@
 Phases (any failure exits nonzero; no phase failure is caught):
   0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      no CUDA device -> exit 1 before anything is printed as a result;
-  1. build the five CUDA kernels from admp_tpu_torch/csrc into
-     admp_tpu_torch/_build (nvcc, one process per source, concurrently);
+  1. build the seven CUDA kernels (four libraries) from admp_tpu_torch/csrc
+     into admp_tpu_torch/_build (nvcc, one process per source, concurrently);
   2. each kernel against its plain PyTorch version at the main path's shapes
-     (the pair HVP K3 for kinds pol, uu and perm, every output);
+     (the pair HVP K3 for kinds pol, uu and perm, every output), and the
+     tiled spread and gather (K5, K7) at the 98k-atom shapes: (order 6, C=1)
+     at 320^3 and 256^3 on the step's stencils, (4, 3) at 320^3 on random
+     ones;
   3. the MD path: the polarizable multipolar PME energy+force step of
      1000 waters (3000 atoms, lmax=2, rc 4 A, ethresh 1e-4, K3=128, the MD
      SCF profile), one cold step and 10 warm drift steps, plus one
@@ -31,11 +34,20 @@ Phases (any failure exits nonzero; no phase failure is caught):
      launch counts per (order, C); the first step and dE/dc_list against the
      plain path in f32 and f64; 2 fitting.fit steps of energy_force_loss
      over c_list against plain f32;
+  3f. the large system (examples/fluctuating_multipoles.py --n-side 32):
+     98,304 atoms, sparse exclusions, cell-list pairs, fixed multipoles that
+     follow each water's O-H stretches (forces through Q_local too), the
+     5-smooth 320^3 grid; one cold step and 10 drift steps on 'auto' (K5/K7
+     and K1/K2 perm 11 launches each, K4/K6 none); the first step against
+     the plain path in f32 and f64, again at --k 256, and under
+     spread_method='cuda' (K4/K6);
   4. timing: ms/step of the MD step (median of 3 x 10 steps, CUDA events), of
      the exact-adjoint step and of the full-force-field step, ms per fitting
-     step, one profiler window each of the MD and full-force-field steps, and
-     each kernel beside its plain version, its bound on the card and, where
-     one exists, the one PyTorch call that computes the same function.
+     step, ms/step of the 98k step on K5/K7, on K4/K6 and plain at 320^3 and
+     256^3 (median of 3 x 5 steps), one profiler window each of the MD,
+     full-force-field and 98k steps, and each kernel beside its plain
+     version, its bound on the card and, where one exists, the one PyTorch
+     call that computes the same function.
 Phase 2 also holds the three-channel spread and gather (K4, K6 at C=3) on the
 dispersion stencil at orders 4 and 6.
 Each path's launch counts are set to 0 just before it runs and read just
@@ -94,6 +106,23 @@ N_FF_FIT_STEPS = 2
 # Adam's step on c_list (entries 7-134, started 5% off): large enough that
 # the force-matching loss falls in f32
 FF_FIT_LR = 0.1
+
+# the large system of examples/fluctuating_multipoles.py --n-side 32: its
+# charge-transfer response (e / A) to O-H stretches about r0 (A), the
+# example's --k grid
+N98_SIDE, N98_JITTER = 32, 0.1
+R0_OH, COUPLING = 0.9572, 0.4
+K98, K98_ALT = 320, 256
+N98_TIME_STEPS = 5
+# its first step, kernel f32 against plain f32 and f64. Energy: |dE| over
+# the largest of its terms (the total is a small residue of ~3e7 kJ/mol
+# terms), against f64 within max(TOL_E98, 2 x the plain f32 path's own),
+# since the f32 floor is ~1e-6 there (f32 mesh coordinates at 320 points
+# per axis; the plain f32 path sits at 1.02e-6). Forces: against plain f32
+# within TOL_STEP_F98, a fraction of the 4.9e-4 f32 floor against f64 that
+# two f32 summation orders differ by at this size (1.16e-4 measured)
+TOL_E98 = 1e-6
+TOL_STEP_F98 = 2e-4
 
 # the card's published peaks (H100 SXM, at the full 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -509,11 +538,13 @@ def reset_counts():
     from admp_tpu_torch.ops.cuda import pairs as P, spread as S
 
     for c in (P.launch_pair_fwd, P.launch_pair_bwd, P.launch_pair_hvp,
-              S.launch_spread, S.launch_gather):
+              S.launch_spread, S.launch_gather, S.launch_spread_tiled,
+              S.launch_gather_tiled):
         c.launches = 0
     P.launch_pair_hvp.by_kind = dict.fromkeys(P.KINDS, 0)
-    S.launch_spread.by_shape = dict.fromkeys(S.SHAPES, 0)
-    S.launch_gather.by_shape = dict.fromkeys(S.SHAPES, 0)
+    for c in (S.launch_spread, S.launch_gather, S.launch_spread_tiled,
+              S.launch_gather_tiled):
+        c.by_shape = dict.fromkeys(S.SHAPES, 0)
 
 
 def read_counts():
@@ -527,7 +558,9 @@ def read_counts():
             "gather": S.launch_gather.launches,
             "pair_hvp_by_kind": dict(P.launch_pair_hvp.by_kind),
             "spread_by_shape": dict(S.launch_spread.by_shape),
-            "gather_by_shape": dict(S.launch_gather.by_shape)}
+            "gather_by_shape": dict(S.launch_gather.by_shape),
+            "spread_tiled_by_shape": dict(S.launch_spread_tiled.by_shape),
+            "gather_tiled_by_shape": dict(S.launch_gather_tiled.by_shape)}
 
 
 def adjoint_path(w, record):
@@ -833,8 +866,266 @@ def ff_path(w, record):
     return kern, plain32, fit_ms
 
 
-def time_runs(run):
-    """Median ms/step over N_REPEATS calls of run(N_STEPS), CUDA events
+# ---------------------------------------------------------------------------
+# phases 2 (K5/K7) and 3f: the large system
+# ---------------------------------------------------------------------------
+
+
+def build_large(device):
+    """examples/fluctuating_multipoles.py --n-side 32 in the port: 98,304
+    atoms, its sparse exclusion table and cell list, with their build
+    times."""
+    from admp_tpu_torch import neighbor_list_cell, water_system
+    from admp_tpu_torch.ops.exclusions import build_sparse_exclusions
+
+    t0 = time.perf_counter()
+    s = water_system(n_side=N98_SIDE, spacing=SPACING, jitter=N98_JITTER,
+                     seed=SEED, exclusions=None)
+    n = s["positions"].shape[0]
+    t_sys = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bonds = [(3 * m, 3 * m + h) for m in range(n // 3) for h in (1, 2)]
+    sparse = build_sparse_exclusions(bonds, n, max_depth=6)
+    t_excl = time.perf_counter() - t0
+    f32 = dict(device=device, dtype=torch.float32)
+    positions = torch.tensor(s["positions"], **f32)
+    box = torch.tensor(s["box"], **f32)
+    t0 = time.perf_counter()
+    nl = neighbor_list_cell(positions, box, RC)
+    torch.cuda.synchronize()
+    t_nl = time.perf_counter() - t0
+    require(not bool(nl.did_overflow) and nl.i_sorted,
+            "98k cell list overflow or not i-sorted")
+    log(f"large system: {n} atoms, box {s['box'][0, 0]:.2f} A; system "
+        f"{t_sys:.2f} s, sparse exclusions (width {sparse.idx.shape[1]}) "
+        f"{t_excl:.2f} s, cell list {t_nl:.2f} s: {nl.capacity} pair slots, "
+        f"cell capacity {nl.cell_capacity}, {nl.n_cells} cells")
+    rng = np.random.default_rng(1)
+    return dict(sys=s, sparse=sparse, positions=positions, box=box,
+                pairs=nl.pairs, q_cart=torch.tensor(s["q_cart"], **f32),
+                scales=torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0], **f32),
+                drift=torch.tensor(DRIFT * rng.standard_normal(
+                    s["positions"].shape), **f32))
+
+
+def fluctuating_q_local(positions, q_cart0):
+    """examples/fluctuating_multipoles.py:75-91: each water's O and H
+    charges shift by COUPLING x its O-H stretches about R0_OH, then
+    Cartesian -> harmonic (lmax 2); differentiable in the positions."""
+    from admp_tpu_torch import convert_cart2harm
+
+    n = positions.shape[0]
+    o, h1, h2 = positions[0::3], positions[1::3], positions[2::3]
+    dq1 = COUPLING * (torch.linalg.norm(h1 - o, dim=-1) - R0_OH)
+    dq2 = COUPLING * (torch.linalg.norm(h2 - o, dim=-1) - R0_OH)
+    q = q_cart0.reshape(n // 3, 3, -1)
+    dq = torch.stack([dq1 + dq2, -dq1, -dq2], dim=1)
+    q = torch.cat([q[..., :1] + dq[..., None], q[..., 1:]], dim=-1)
+    return convert_cart2harm(q.reshape(n, -1), 2)
+
+
+def make_large_force(w, dtype, pair_kernel, spread_method, k=None):
+    """The example's force: fixed multipoles, lmax 2, the 5-smooth grid
+    (320^3 here), i-sorted pairs; ``k`` sets K1..K3 as its --k does."""
+    from admp_tpu_torch import ADMPPmeForce, EngineConfig
+
+    s = w["sys"]
+    force = ADMPPmeForce(
+        s["box"], s["axis_types"], s["axis_indices"], w["sparse"], RC,
+        ETHRESH, lmax=LMAX,
+        config=EngineConfig(fft_friendly_grid=True, pairs_i_sorted=True,
+                            pair_kernel=pair_kernel,
+                            spread_method=spread_method),
+        device=w["positions"].device, dtype=dtype)
+    if k:
+        force.K1 = force.K2 = force.K3 = k
+        force.refresh_calculators()
+    return force
+
+
+def large_args(w, positions, dtype):
+    c = lambda t: t.to(dtype)  # noqa: E731
+    return (positions, c(w["box"]), w["pairs"],
+            fluctuating_q_local(positions, c(w["q_cart"])), c(w["scales"]))
+
+
+def large_step(force, w, positions, dtype=torch.float32):
+    """(energy, dE/dpositions) through the geometry and Q_local."""
+    pos = positions.to(dtype).detach().requires_grad_(True)
+    with torch.enable_grad():
+        e = force.get_energy(*large_args(w, pos, dtype))
+        (g,) = torch.autograd.grad(e, pos)
+    return e.detach(), g
+
+
+def run_large(force, w, n_steps, dtype=torch.float32):
+    """n_steps 98k steps with drift, consuming the forces."""
+    p, energies = w["positions"].to(dtype), []
+    for _ in range(n_steps):
+        e, g = large_step(force, w, p, dtype)
+        p = p + w["drift"].to(dtype) + 0.0 * g
+        energies.append(e)
+    return energies
+
+
+def large_stencil(w, grid, order=6):
+    """The 98k step's energy-mesh stencil values at its first step."""
+    from admp_tpu_torch.ops.reciprocal import atom_spread_alpha, spread_points_separable
+
+    q_local = fluctuating_q_local(w["positions"], w["q_cart"])
+    m_u0, u0, alpha = atom_spread_alpha(w["positions"], w["box"], q_local,
+                                        grid, LMAX, order)
+    q = spread_points_separable(u0, alpha, LMAX, order)
+    return m_u0.contiguous(), q.reshape(q.shape[0], 1, -1).contiguous()
+
+
+def check_spread_tiled(w, record):
+    """K5 and K7 against their plain versions (and the plain spread and
+    gather) at the 98k shapes: (6, 1) at 320^3 and 256^3 on the step's
+    stencils, (4, 3) at 320^3 on random stencil values."""
+    from admp_tpu_torch.ops.cuda import spread as S
+    from admp_tpu_torch.ops.reciprocal import mesh_coordinates
+
+    rng = np.random.default_rng(8)
+    dev = w["positions"].device
+    cases = []
+    for k in (K98, K98_ALT):
+        cases.append(((k,) * 3, 6) + large_stencil(w, (k,) * 3))
+    grid = (K98,) * 3
+    m_u0 = mesh_coordinates(w["positions"], w["box"], grid, 4)[0]
+    q = torch.tensor(rng.standard_normal((m_u0.shape[0], 3, 64)), device=dev,
+                     dtype=torch.float32)
+    cases.append((grid, 4, m_u0.contiguous(), q))
+    for grid, order, m_u0, q in cases:
+        n_ch = q.shape[1]
+        bins = S.tile_bins(m_u0, grid, S.TILE, order)
+        mesh_k = S.launch_spread_tiled(bins, q, grid, order)
+        mesh_t = S.spread_tiled_torch(bins, q, grid, order)
+        mesh_p = S.spread_torch(m_u0, q, grid, order)
+        torch.cuda.synchronize()
+        scale = float(mesh_t.abs().max())
+        err = float((mesh_k - mesh_t).abs().max())
+        err_p = float((mesh_k - mesh_p).abs().max())
+        g_mesh = torch.tensor(rng.standard_normal((n_ch, *grid)), device=dev,
+                              dtype=torch.float32)
+        out_k = S.launch_gather_tiled(bins, g_mesh, grid, order)
+        out_t = S.gather_tiled_torch(bins, g_mesh, grid, order)
+        same = (torch.equal(out_k, out_t)
+                and torch.equal(out_k, S.gather_torch(m_u0, g_mesh, grid,
+                                                      order)))
+        log(f"tiled spread (K5) order {order} C={n_ch} N={m_u0.shape[0]} "
+            f"grid={grid}: max abs err {err:.3e} = {err / scale:.3e} x "
+            f"max|mesh| vs its plain version, {err_p / scale:.3e} vs the "
+            f"plain spread; tiled gather (K7) bitwise equal {same}")
+        require(err <= TOL_SPREAD * scale and err_p <= TOL_SPREAD * scale,
+                f"tiled spread order {order} C={n_ch} {grid}: {err / scale}")
+        require(same, f"tiled gather order {order} C={n_ch} {grid} differs")
+        if grid == (K98,) * 3 and order == 6:
+            record["spread_tiled"]["max_abs_err"] = err
+            record["gather_tiled"]["max_abs_err"] = float(
+                (out_k - out_t).abs().max())
+            record["_tiled_inputs"] = (m_u0, q, g_mesh)
+
+
+def large_path(w, record):
+    """Phase 3f: the 98k step on 'auto' (K5/K7), its launches, and its
+    first step against the plain path in f32 and f64 at 320^3 and 256^3 and
+    under spread_method='cuda' (K4/K6). Returns the forces it timed."""
+    dev = w["positions"].device
+    auto = make_large_force(w, torch.float32, "auto", "auto")
+    grid = (auto.K1, auto.K2, auto.K3)
+    log(f"large system: grid {grid}, kappa {auto.kappa:.6f}, "
+        f"{w['pairs'].shape[0]} pair slots")
+    require(grid == (K98,) * 3, f"the 5-smooth grid is {grid}")
+    reset_counts()
+    t0 = time.perf_counter()
+    energies = run_large(auto, w, 1 + N_STEPS)
+    counts = read_counts()
+    log(f"phase 3f launches (1 cold + {N_STEPS} drift steps, "
+        f"{time.perf_counter() - t0:.2f} s): {counts}")
+    log("98k steps: energies " + str([round(float(e), 3) for e in energies]))
+    want = 1 + N_STEPS
+    require(counts["spread_tiled_by_shape"][6, 1] == want
+            and counts["gather_tiled_by_shape"][6, 1] == want,
+            "K5/K7 did not launch once per step")
+    require(counts["pair_fwd"] == want and counts["pair_bwd"] == want,
+            "K1/K2 perm did not launch once per step")
+    require(counts["spread_by_shape"][6, 1] == 0
+            and counts["gather_by_shape"][6, 1] == 0,
+            "K4/K6 launched on the large mesh")
+    require(all(bool(torch.isfinite(e)) for e in energies),
+            "98k: non-finite energy")
+    record["spread_tiled"]["launches"] = counts["spread_tiled_by_shape"][6, 1]
+    record["gather_tiled"]["launches"] = counts["gather_tiled_by_shape"][6, 1]
+
+    forces, scales = {}, {}
+    for k in (K98, K98_ALT):
+        kern = (auto if k == K98
+                else make_large_force(w, torch.float32, "auto", "auto", k))
+        plain32 = make_large_force(w, torch.float32, "torch", "torch", k)
+        plain64 = make_large_force(w, torch.float64, "torch", "torch", k)
+        forces[k] = {"auto": kern, "plain": plain32}
+        p0 = w["positions"]
+        e_k, g_k = large_step(kern, w, p0)
+        require(bool(torch.isfinite(g_k).all())
+                and tuple(g_k.shape) == tuple(p0.shape),
+                f"98k at {k}^3: forces not finite or of the wrong shape")
+        e_p, g_p = large_step(plain32, w, p0)
+        e_64, g_64 = large_step(plain64, w, p0, torch.float64)
+        with torch.no_grad():
+            terms = plain64.get_metrics(*large_args(w, p0.double(),
+                                                    torch.float64))
+        scale = scales[k] = max(abs(float(terms[t])) for t in (
+            "e_real", "e_recip", "e_self"))
+        de, de64 = (abs(float(e_k) - float(e)) / scale for e in (e_p, e_64))
+        de64_p = abs(float(e_p) - float(e_64)) / scale
+        df, df64 = rel_rmse(g_k, g_p), rel_rmse(g_k, g_64)
+        log(f"98k first step at {k}^3: E {float(e_k):.4f} (kernel f32), "
+            f"{float(e_p):.4f} (plain f32), {float(e_64):.4f} (plain f64) "
+            f"kJ/mol; terms (f64) real {float(terms['e_real']):.1f}, recip "
+            f"{float(terms['e_recip']):.1f}, self {float(terms['e_self']):.1f}"
+            f"; |dE| / max|term| vs plain f32 {de:.3e}, vs f64 {de64:.3e} "
+            f"(plain f32 vs f64 {de64_p:.3e}); "
+            f"force rel RMSE vs plain f32 {df:.3e}, vs f64 {df64:.3e}, plain "
+            f"f32 vs f64 {rel_rmse(g_p, g_64):.3e}")
+        require(de < TOL_E98 and de64 < max(TOL_E98, 2 * de64_p),
+                f"98k energy at {k}^3: {de}, {de64} (plain f32 {de64_p})")
+        require(df < TOL_STEP_F98, f"98k forces vs plain f32 at {k}^3: {df}")
+        if k == K98:
+            # which kernels the f32 difference comes from (logged only)
+            for pk, sm in (("auto", "torch"), ("torch", "auto")):
+                _, g_mix = large_step(make_large_force(
+                    w, torch.float32, pk, sm, k), w, p0)
+                log(f"98k at {k}^3, pair_kernel={pk!r} spread_method={sm!r}"
+                    f": force rel RMSE vs plain f32 {rel_rmse(g_mix, g_p):.3e}")
+        require(df64 < TOL_F64, f"98k forces vs plain f64 at {k}^3: {df64}")
+        del plain64
+
+    for k in (K98, K98_ALT):
+        cuda = make_large_force(w, torch.float32, "auto", "cuda", k)
+        reset_counts()
+        e_c, g_c = large_step(cuda, w, w["positions"])
+        counts = read_counts()
+        e_a, g_a = large_step(forces[k]["auto"], w, w["positions"])
+        de = abs(float(e_c) - float(e_a)) / scales[k]
+        df = rel_rmse(g_c, g_a)
+        log(f"98k at {k}^3 under spread_method='cuda' (K4/K6) vs 'auto' "
+            f"(K5/K7): energy {float(e_c):.4f} vs {float(e_a):.4f} "
+            f"(|dE| / max|term| {de:.3e}), force rel RMSE {df:.3e}; launches "
+            f"K4 {counts['spread_by_shape']}, K5 "
+            f"{counts['spread_tiled_by_shape']}")
+        require(counts["spread_by_shape"][6, 1] == 1
+                and counts["gather_by_shape"][6, 1] == 1
+                and counts["spread_tiled_by_shape"][6, 1] == 0,
+                "spread_method='cuda' did not take K4/K6")
+        require(de < TOL_E98, f"98k 'cuda' vs 'auto' energy {de}")
+        require(df < TOL_STEP_F98, f"98k 'cuda' vs 'auto' forces {df}")
+        forces[k]["cuda"] = cuda
+    return forces
+
+
+def time_runs(run, n_steps=N_STEPS):
+    """Median ms/step over N_REPEATS calls of run(n_steps), CUDA events
     around each call (each ends in a synchronize); run returns a list of the
     per-step PCG iteration counts, or of anything."""
     run(2)  # warm-up
@@ -844,10 +1135,10 @@ def time_runs(run):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = run(N_STEPS)
+        out = run(n_steps)
         stop.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / N_STEPS)
+        times.append(start.elapsed_time(stop) / n_steps)
         iters += out
     return statistics.median(times), times, iters
 
@@ -958,6 +1249,48 @@ def spread_calls(m_u0, q, g_mesh, order):
     }
 
 
+def tiled_calls(m_u0, q, g_mesh, order):
+    """K5 and K7 on their bins, their plain versions, the one-call
+    counterparts and bounds of spread_calls (the same functions)."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    grid = tuple(g_mesh.shape[1:])
+    bins = S.tile_bins(m_u0, grid, S.TILE, order)
+    base = spread_calls(m_u0, q, g_mesh, order)
+    return {
+        "spread_tiled": (
+            lambda: S.launch_spread_tiled(bins, q, grid, order),
+            lambda: S.spread_tiled_torch(bins, q, grid, order),
+            *base["spread"][2:]),
+        "gather_tiled": (
+            lambda: S.launch_gather_tiled(bins, g_mesh, grid, order),
+            lambda: S.gather_tiled_torch(bins, g_mesh, grid, order),
+            *base["gather"][2:]),
+    }
+
+
+def time_large_kernels(w, card):
+    """K5/K7 beside K4/K6 on the same 98k inputs at 320^3 and 256^3 (the
+    one-call comparison), and the binning that K5/K7 need; logged."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    rng = np.random.default_rng(9)
+    for k in (K98, K98_ALT):
+        grid = (k,) * 3
+        m_u0, q = large_stencil(w, grid)
+        g_mesh = torch.tensor(rng.standard_normal((1, *grid)),
+                              device=q.device, dtype=torch.float32)
+        calls = dict(spread_calls(m_u0, q, g_mesh, 6))
+        calls.update(tiled_calls(m_u0, q, g_mesh, 6))
+        calls["tile_bins"] = (lambda: S.tile_bins(m_u0, grid, S.TILE, 6),)
+        for name, c in calls.items():
+            ms, dev_ms = cuda_time_ms(c[0])
+            extra = (f", bound {c[3][0]:.4f} ms ({c[3][1]})" if len(c) > 3
+                     else "")
+            log(f"phase 4 [{card}]: 98k {grid} {name}: {ms:.4f} ms/call "
+                f"({dev_ms:.4f} ms device){extra}")
+
+
 def time_kernels(record):
     """Each kernel, its plain version and its one-call PyTorch counterpart
     (where there is one) at the main path's shapes, and its bound."""
@@ -1001,6 +1334,8 @@ def time_kernels(record):
     m3, q3, g3, order3 = record.pop("_spread_c3_inputs")
     calls.update({f"{k}_c3": v for k, v in
                   spread_calls(m3, q3, g3, order3).items()})
+    m98, q98, g98 = record.pop("_tiled_inputs")
+    calls.update(tiled_calls(m98, q98, g98, 6))
     for name, (kernel, plain, library, (b_ms, b_by)) in calls.items():
         r = record[name]
         r["ms"], r["device_ms"] = cuda_time_ms(kernel)
@@ -1059,6 +1394,11 @@ def main():
                           replaces="admp_tpu/ops/pallas/spread.py:210"),
         "gather_c3": dict(source="admp_tpu_torch/csrc/spread.cu",
                           replaces="admp_tpu/ops/pallas/spread.py:890"),
+        # the large-mesh pair (order 6, C=1, 320^3, 98,304 atoms)
+        "spread_tiled": dict(source="admp_tpu_torch/csrc/spread_tiled.cu",
+                             replaces="admp_tpu/ops/pallas/spread.py:718"),
+        "gather_tiled": dict(source="admp_tpu_torch/csrc/spread_tiled.cu",
+                             replaces="admp_tpu/ops/pallas/spread.py:949"),
     }
     t0 = time.perf_counter()
     w = build_workload(dev)
@@ -1070,6 +1410,8 @@ def main():
     check_hvp(w, record)
     check_spread(w, record)
     check_spread_c3(w, record)
+    w98 = build_large(dev)
+    check_spread_tiled(w98, record)
     log("phase 2: every kernel agrees with its plain version")
 
     force, plain32 = main_path(w, record)
@@ -1080,6 +1422,8 @@ def main():
     log("phase 3d: trainer ok")
     ff, ff_plain, ff_fit_ms = ff_path(w, record)
     log("phase 3e: full force field ok")
+    large = large_path(w98, record)
+    log("phase 3f: large system ok")
 
     ms, times, iters = time_steps(force, w)
     ms_plain, times_plain, _ = time_steps(plain32, w)
@@ -1116,9 +1460,20 @@ def main():
         f"{ms_ff_plain:.3f} ms/step ({[round(t, 3) for t in times_ff_plain]})"
         f"; c_list fit steps: kernel {[round(v, 3) for v in ff_fit_ms['kernel']]}"
         f" ms, plain f32 {[round(v, 3) for v in ff_fit_ms['plain32']]} ms")
+    for k, routes in large.items():
+        out = []
+        for route, f in routes.items():
+            ms_r, times_r, _ = time_runs(lambda n, f=f: run_large(f, w98, n),
+                                         N98_TIME_STEPS)
+            out.append(f"{route} {ms_r:.3f} ({[round(t, 3) for t in times_r]})")
+        log(f"phase 4 [{card}]: 98k step at {k}^3, ms/step (median of "
+            f"{N_REPEATS} x {N98_TIME_STEPS} steps): " + "; ".join(out)
+            + " [auto: K5/K7, cuda: K4/K6, plain: index_add_ and the plain "
+            "pair path]")
     for name, run in (
             ("md", lambda n: run_steps(force, w, w["positions"], n)),
-            ("fullff", lambda n: run_ff(ff, w, n))):
+            ("fullff", lambda n: run_ff(ff, w, n)),
+            ("large", lambda n: run_large(large[K98]["auto"], w98, n))):
         wall, device_ms, n_kernels, top = profile_steps(run, name)
         log(f"profile {name} (3 warm steps, profiler on): {wall:.3f} ms/step "
             f"wall, {device_ms:.3f} ms/step device busy "
@@ -1126,6 +1481,7 @@ def main():
             "kernels/step; top by device time:")
         for key, ms_k, count in top:
             log(f"  {ms_k:8.4f} ms/step  x{count:<4d} {key}")
+    time_large_kernels(w98, card)
     time_kernels(record)
     for name, r in record.items():
         lib = ("none" if r["library_ms"] is None

@@ -15,6 +15,8 @@ import admp_tpu_torch.models.dispersion, admp_tpu_torch.ops.shortrange
 import admp_tpu_torch.ops.neighborlist, admp_tpu_torch.ops.dispersion
 import admp_tpu_torch.fitting, admp_tpu_torch.checkpoint
 import admp_tpu_torch.ops.cuda.pairs, admp_tpu_torch.ops.cuda.spread
+import admp_tpu_torch.ops.exclusions, admp_tpu_torch.ops.reciprocal
+import admp_tpu_torch.systems
 from admp_tpu_torch.ops.cuda import build
 assert 'jax' not in sys.modules, 'jax imported'
 assert 'admp_tpu' not in sys.modules, 'admp_tpu imported'

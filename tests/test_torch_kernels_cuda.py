@@ -16,7 +16,12 @@ zero-polarizability sites, where float32 keeps no digit), a central
 difference of K2 within 1e-2, the spread 1e-5 max|mesh| (atomic summation
 order), the gather bit for bit, the three-channel spread's autograd and the
 dispersion force (energy 1e-5 relative, forces and dE/dc_list 1e-4 relative
-RMSE) against their plain paths.
+RMSE) against their plain paths. The tiled pair: K5 within 1e-5 max|mesh| of
+its plain version and of the plain spread and the same on every run (its
+sum order is fixed), K7 bit for bit, on grids the tile divides and does
+not, with atoms outside the box; the plain versions under gradcheck at
+float64; second-order pulls on the kernels; and 'auto' on a 256^3 mesh
+launching K5/K7 and not K4/K6.
 """
 
 import numpy as np
@@ -36,6 +41,7 @@ from admp_tpu_torch.ops.reciprocal import (
     atom_spread_alpha,
     multi_stencil,
     spread_points_separable,
+    spread_to_mesh,
 )
 
 pytestmark = pytest.mark.cuda
@@ -323,3 +329,102 @@ def test_exact_adjoint_step_kernels_match_plain(dev):
     assert _rel(g_k, g_p) < 2e-4
     for a, b in zip(p_k, p_p):
         assert _rel(a, b) < 1e-3
+
+
+def _tiled_stencil(dev, grid, order, channels, shift):
+    """Stencil values of the 192-atom box, with ``shift`` moving every atom
+    by box vectors (bases outside [0, K), as after a drift)."""
+    _, pos, box, q, _, _ = _system(dev)
+    pos = pos + shift * (1.3 * box[0] - 0.7 * box[1])
+    m_u0, u0, alpha = atom_spread_alpha(pos, box, q, grid, 2, order)
+    pts = spread_points_separable(u0, alpha, 2, order).reshape(
+        -1, 1, order ** 3)
+    pts = (pts.repeat(1, channels, 1) * torch.arange(
+        1, channels + 1, device=dev)[None, :, None]).contiguous()
+    return m_u0.contiguous(), pts
+
+
+@pytest.mark.parametrize("grid", [(64, 48, 96), (250, 243, 250), (20, 13, 9)])
+@pytest.mark.parametrize("order,channels", [(6, 1), (4, 3)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_tiled_spread_and_gather_match_plain(dev, grid, order, channels,
+                                             shift):
+    m_u0, pts = _tiled_stencil(dev, grid, order, channels, shift)
+    bins = S.tile_bins(m_u0, grid, S.TILE, order)
+    before = (S.launch_spread_tiled.by_shape[order, channels],
+              S.launch_gather_tiled.by_shape[order, channels])
+    mesh_k = S.launch_spread_tiled(bins, pts, grid, order)
+    again = S.launch_spread_tiled(bins, pts, grid, order)
+    mesh_t = S.spread_tiled_torch(bins, pts, grid, order)
+    mesh_p = S.spread_torch(m_u0, pts, grid, order)
+    torch.cuda.synchronize()
+    scale = float(mesh_p.abs().max())
+    assert float((mesh_k - mesh_t).abs().max()) <= 1e-5 * scale
+    assert float((mesh_k - mesh_p).abs().max()) <= 1e-5 * scale
+    assert torch.equal(mesh_k, again)  # a fixed summation order
+    g = torch.randn((channels, *grid), device=dev)
+    out_k = S.launch_gather_tiled(bins, g, grid, order)
+    assert torch.equal(out_k, S.gather_torch(m_u0, g, grid, order))
+    assert torch.equal(out_k, S.gather_tiled_torch(bins, g, grid, order))
+    assert (S.launch_spread_tiled.by_shape[order, channels] - before[0],
+            S.launch_gather_tiled.by_shape[order, channels] - before[1]) == (
+                2, 1)
+
+
+def test_tiled_plain_versions_gradcheck_f64(dev):
+    grid, order = (9, 10, 11), 4
+    m_u0, pts = _tiled_stencil(dev, grid, order, 1, 1)
+    m_u0, pts = m_u0[:6], pts[:6].double().requires_grad_(True)
+    bins = S.tile_bins(m_u0, grid, S.TILE, order)
+    g = torch.randn((1, *grid), device=dev, dtype=torch.float64,
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda x: S.spread_tiled_torch(bins, x, grid, order), (pts,))
+    assert torch.autograd.gradcheck(
+        lambda x: S.gather_tiled_torch(bins, x, grid, order), (g,))
+
+
+def test_tiled_functions_second_order_on_kernels(dev):
+    """spread (K5) -> its gradient (K7) -> the gradient's gradient (K5, the
+    gather's backward, then K7 again) against the plain spread's autograd."""
+    grid = (50, 27, 43)
+    m_u0, pts = _tiled_stencil(dev, grid, 6, 1, 0)
+    pts = pts.detach().requires_grad_(True)
+    w = torch.randn((1, *grid), device=dev)
+    out = {}
+    for method in ("cuda2d", "torch"):
+        before = (S.launch_spread_tiled.launches,
+                  S.launch_gather_tiled.launches)
+        mesh = S.spread(m_u0, pts, grid, 6, method=method)
+        (g1,) = torch.autograd.grad((mesh * mesh * w).sum(), pts,
+                                    create_graph=True)
+        (g2,) = torch.autograd.grad(g1.sum(), pts)
+        launched = (S.launch_spread_tiled.launches - before[0],
+                    S.launch_gather_tiled.launches - before[1])
+        assert launched == ((2, 2) if method == "cuda2d" else (0, 0))
+        out[method] = (mesh, g1, g2)
+    for a, b in zip(out["cuda2d"], out["torch"]):
+        assert _rel(a, b) < 1e-5
+
+
+def test_auto_takes_the_tiled_pair_on_a_large_mesh(dev):
+    """'auto' on a 256^3 order-6 mesh (67 MB, more than the H100's 50 MB
+    L2) launches K5 and, in the backward, K7, and neither K4 nor K6; the
+    mesh and the position gradient match the plain route."""
+    s, pos, box, q, _, _ = _system(dev, n_side=10)
+    grid = (256, 256, 256)
+    out = {}
+    for method in ("auto", "torch"):
+        p = pos.detach().requires_grad_(True)
+        counts = (S.launch_spread_tiled.launches,
+                  S.launch_gather_tiled.launches, S.launch_spread.launches,
+                  S.launch_gather.launches)
+        mesh = spread_to_mesh(p, box, q, grid, 2, method)
+        (g,) = torch.autograd.grad((mesh * mesh).sum(), p)
+        now = (S.launch_spread_tiled.launches, S.launch_gather_tiled.launches,
+               S.launch_spread.launches, S.launch_gather.launches)
+        launched = tuple(b - a for a, b in zip(counts, now))
+        assert launched == ((1, 1, 0, 0) if method == "auto" else (0,) * 4)
+        out[method] = (mesh, g)
+    assert _rel(out["auto"][0], out["torch"][0]) < 1e-5
+    assert _rel(out["auto"][1], out["torch"][1]) < 1e-4

@@ -6,19 +6,32 @@
 // _pallas_gather_slabs_impl :1165) and, at K3 % 128 == 0, the XLA row gather
 // _row_gather_impl (:1291) that admp_tpu takes there on the TPU.
 //
-// One thread per (atom, stencil point); the channels loop inside it. The
-// spread computes the periodic flat mesh index from the atom's base index
-// m_u0 and atomically adds each channel's stencil value into the f32 mesh;
-// the gather reads the cotangent mesh at the same index, so it is exact
-// (pure selection) and the two are mutually adjoint. There are no slab
-// buckets, capacities or overflow fallbacks: on the card atomics replace the
-// TPU's VMEM slab accumulators.
+// K4: one thread per (atom, stencil point); the channels loop inside it. It
+// computes the periodic flat mesh index from the atom's base index m_u0 and
+// atomically adds each channel's stencil value into the f32 mesh. There are
+// no slab buckets, capacities or overflow fallbacks: on the card atomics
+// replace the TPU's VMEM slab accumulators. Bound by memory traffic and
+// atomic throughput: it reads 4 bytes of stencil value per (atom, point,
+// channel) and issues one f32 atomicAdd; consecutive threads hold
+// consecutive z points of one atom, so both the reads and the atomics of a
+// warp hit neighbouring addresses of one mesh row.
 //
-// Bound on the card: memory traffic and atomic throughput. The spread reads
-// 4 bytes of stencil value per (atom, point, channel) and issues one f32
-// atomicAdd; consecutive threads hold consecutive z points of one atom, so
-// both the reads and the atomics of a warp hit neighbouring addresses of one
-// mesh row. The meshes these serve under 'auto' stay in the 50 MB L2: the
+// K6: one lane per stencil row (atom, x, y) wraps the row's x and y indices
+// and its first z once (a remainder only off the axis), for every channel,
+// where the first version took three remainders per point. A warp's 32 rows
+// hold 32 order values per channel, in output order; the warp reads and
+// writes them in order rounds of 32 consecutive values, each lane taking its
+// value's row offsets from the row's lane by shuffle. So the lanes of a
+// round read consecutive z of a few rows (a run, unless the row wraps at K3;
+// an axis shorter than the stencil takes each z by its remainder) and store
+// one 128-byte span per channel. (A lane reading its own row instead puts 32
+// rows under each load: it lost to one thread per point at C=3.) A pure
+// selection, so exact: equal bit for bit to the plain gather, and the
+// adjoint of K4. Bound by bytes: the N C order^3 values written and the mesh
+// points the stencils touch. At 3,000 atoms the call is host-bound: see the
+// launchers in ops/cuda/spread.py.
+//
+// The meshes K4/K6 serve under 'auto' stay in the 50 MB L2: the
 // electrostatic (96, 96, 128) or 128^3 mesh (4.7 / 8.4 MB, C=1, order 6) and
 // the dispersion 3 x 128^3 mesh (25 MB, C=3, order 4 or 6). A larger order-6
 // mesh (the 98k-atom box at 256^3 and 320^3) goes to the tiled pair of
@@ -72,20 +85,55 @@ spread_kernel(const int* __restrict__ m_u0, const float* __restrict__ q, float* 
     atomicAdd(mesh + ch * plane + flat, q[(static_cast<long long>(atom) * NCH + ch) * kPts + pt]);
 }
 
+// x's periodic index on an axis of k points; the remainder only off the axis
+__device__ __forceinline__ int wrap_fast(int x, int k) {
+  return static_cast<unsigned>(x) < static_cast<unsigned>(k) ? x : wrap_index(x, k);
+}
+
+// Warp w owns the stencil rows 32w .. 32w + 31 (row t: atom t / order^2,
+// then x, y). Lane l wraps row 32w + l: its (x, y) offset in a channel plane
+// and its first z. In round j, lane l takes value j 32 + l of the warp's
+// rows, row (j 32 + l) / order, from that row's lane by shuffle, and copies
+// it in every channel: out[atom][ch][x][y][z], so a round's 32 values in one
+// channel are consecutive floats within an atom.
 template <int ORDER, int NCH>
 __global__ void __launch_bounds__(kBlock)
 gather_kernel(const int* __restrict__ m_u0, const float* __restrict__ mesh,
               float* __restrict__ out, int n, int k1, int k2, int k3) {
-  constexpr int kPts = ORDER * ORDER * ORDER;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(n) * kPts) return;
-  const int atom = static_cast<int>(t / kPts);
-  const int pt = static_cast<int>(t % kPts);
-  const long long flat = stencil_flat_index<ORDER>(m_u0 + 3 * atom, pt, k1, k2, k3);
+  constexpr int kRows = ORDER * ORDER;  // stencil rows of an atom
+  constexpr int kPts = kRows * ORDER;
+  constexpr int kHalf = ORDER / 2;
+  const long long rows = static_cast<long long>(n) * kRows;
+  const int lane = threadIdx.x % 32;
+  const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x - lane;
+  if (row0 >= rows) return;  // the whole warp
+  const long long t = row0 + lane;
+  long long start = 0;  // the row's offset in a channel plane at z = 0
+  int z0 = 0;
+  if (t < rows) {
+    const int atom = static_cast<int>(t / kRows), row = static_cast<int>(t % kRows);
+    const int* m = m_u0 + 3 * atom;
+    const int i1 = wrap_fast(m[0] + row / ORDER - kHalf, k1);
+    const int i2 = wrap_fast(m[1] + row % ORDER - kHalf, k2);
+    z0 = wrap_fast(m[2] - kHalf, k3);
+    start = (static_cast<long long>(i1) * k2 + i2) * k3;
+  }
+  const long long left = rows - row0;
+  const int live = (left < 32 ? static_cast<int>(left) : 32) * ORDER;  // values per channel
   const long long plane = static_cast<long long>(k1) * k2 * k3;
 #pragma unroll
-  for (int ch = 0; ch < NCH; ++ch)
-    out[(static_cast<long long>(atom) * NCH + ch) * kPts + pt] = mesh[ch * plane + flat];
+  for (int j = 0; j < ORDER; ++j) {
+    const int k = j * 32 + lane, src = k / ORDER, c = k % ORDER;
+    const long long s = __shfl_sync(0xffffffffu, start, src);
+    int z = __shfl_sync(0xffffffffu, z0, src) + c;
+    if (z >= k3) z %= k3;
+    const long long r = row0 + src;  // the value's (atom, row): out[atom][ch][row][c]
+    const long long o = r * ORDER + c + r / kRows * (NCH - 1) * kPts;
+    if (k < live) {
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) out[o + ch * kPts] = mesh[ch * plane + s + z];
+    }
+  }
 }
 
 template <int ORDER, int NCH>
@@ -100,7 +148,7 @@ int launch_spread(const int* m_u0, const float* q, float* mesh, int n, int k1, i
 template <int ORDER, int NCH>
 int launch_gather(const int* m_u0, const float* mesh, float* out, int n, int k1, int k2, int k3,
                   cudaStream_t s) {
-  const long long threads = static_cast<long long>(n) * ORDER * ORDER * ORDER;
+  const long long threads = static_cast<long long>(n) * ORDER * ORDER;  // one per row
   const int grid = static_cast<int>((threads + kBlock - 1) / kBlock);
   gather_kernel<ORDER, NCH><<<grid, kBlock, 0, s>>>(m_u0, mesh, out, n, k1, k2, k3);
   return static_cast<int>(cudaGetLastError());

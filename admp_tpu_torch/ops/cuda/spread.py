@@ -10,10 +10,14 @@ TPU at K3 % 128 == 0 hands over to the XLA row gather ``_row_gather_impl``
 The spread accumulates each atom's order^3 stencil values, for C channels,
 onto the periodic (C, K1, K2, K3) mesh: one thread per (atom, stencil point),
 one f32 atomicAdd per channel. The gather reads the cotangent mesh at the same
-indices: exact, equal bit for bit to the plain gather. Neither has admp_tpu's
-slab buckets, capacities or scatter fallback; atomics take their place. Bound
-on the card by the atomic and memory traffic of N order^3 C values; the mesh
-stays in L2.
+indices: one lane per stencil row (atom, x, y) wraps the row once for every
+channel, and each warp reads its rows' z runs and writes its span of the
+output in rounds of 32 consecutive values. It is exact, equal bit for bit to
+the plain gather. Neither has admp_tpu's slab buckets, capacities or scatter
+fallback; atomics take their place. Bound on the card by the atomic and
+memory traffic of N order^3 C values; the mesh stays in L2. At 3000 atoms a
+gather's device work is shorter than a PyTorch op's host work, so the
+launchers keep their own host work lean (below).
 
 ``SpreadFn`` and ``GatherFn`` are each other's backward, as admp_tpu pairs
 its custom_vjps (spread.py:1343-1397), so derivatives of any order stay on
@@ -32,10 +36,13 @@ K5 and K7 (csrc/spread_tiled.cu) replace admp_tpu's 2-D blocked spread
 ``_make_gather_kernel_mxu`` (:949). ``tile_bins`` bins the atoms by the mesh
 tile of their wrapped base index, in plain PyTorch shared by the kernels and
 their plain versions ``spread_tiled_torch`` / ``gather_tiled_torch``, which
-accumulate and read per tile over the same bins. ``SpreadTiledFn`` and
-``GatherTiledFn`` are each other's backward (admp_tpu's
-``spread_blocks_2d_multi`` and ``gather_blocks_2d``, :1400-1473); on a CPU
-tensor they take the plain versions.
+accumulate and read per tile over the same bins. K5 is owner-computes: one
+block per core tile stages the atoms whose bases lie in the tile's halo'd
+window, from every source bin in one pass, with asynchronous copies into
+shared memory, and sums them in a fixed order (no atomics, the same mesh on
+every run). ``SpreadTiledFn`` and ``GatherTiledFn`` are each other's
+backward (admp_tpu's ``spread_blocks_2d_multi`` and ``gather_blocks_2d``,
+:1400-1473); on a CPU tensor they take the plain versions.
 """
 
 from __future__ import annotations
@@ -95,53 +102,112 @@ def gather_torch(m_u0, mesh, grid_shape, order: int):
 # Kernel launchers
 # ---------------------------------------------------------------------------
 
+# The launchers sit on every step of the 3000-atom paths, where K6's device
+# work (~3 us on the H100) is shorter than one PyTorch op's host work, so
+# their own host work is lean: one pass of checks (the error that names a
+# failure is worked out only then, by _refusal); the C entry point from a
+# dict once its library is loaded (no lock); the raw current stream of the
+# tensor's device (no torch.cuda.Stream object); torch.empty with its sizes
+# as arguments; the call; the counts. The entry points are called through a
+# PyDLL view of their library without argtypes: a launch only enqueues
+# work, so it keeps the GIL, and pointers go as c_void_p, sizes as Python
+# ints (typed arguments cost more). torch.empty and the C entry's call
+# (ctypes and the launch) take about a third of the call each (PERF.md).
+
 _P = ctypes.c_void_p
-_I = ctypes.c_int
+_F32, _I32 = torch.float32, torch.int32
+_LIBS = {"admp_spread": "spread", "admp_gather": "spread",
+         "admp_spread_tiled": "spread_tiled",
+         "admp_gather_tiled": "spread_tiled"}  # C entry point -> library
+_entries = {}  # C entry point -> its ctypes function
+# device index -> its current CUDA stream as an int (None in a CPU-only
+# torch, where every launcher raises before it would be called)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _lib():
-    lib = build.load("spread")
-    if not getattr(lib, "_admp_typed", False):
-        for fn in (lib.admp_spread, lib.admp_gather):
-            fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-            fn.restype = _I
-        lib._admp_typed = True
-    return lib
+def _entry(name: str):
+    """The C entry point ``name`` (returning an int status). The first call
+    builds and loads its library (build.load); later calls read it from
+    ``_entries``."""
+    fn = _entries.get(name)
+    if fn is None:
+        lib = build.load(_LIBS[name])
+        fn = getattr(ctypes.PyDLL(lib._name, handle=lib._handle), name)
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
 
 
-def _check(m_u0, x, name, grid_shape, order):
+def _fits(idx, x, dev, order):
+    """Whether every spread kernel takes x and the bases ``idx`` as they
+    are: order 4 or 6, x contiguous float32 on CUDA device ``dev``
+    (x.get_device()), idx contiguous (N, 3) int32 on the same device."""
+    return (dev >= 0 and order in ORDERS and x.dtype is _F32
+            and idx.dtype is _I32 and x.is_contiguous()
+            and idx.is_contiguous() and idx.shape[1:] == (3,)
+            and idx.get_device() == dev)
+
+
+def _refusal(idx, x, name, order, shape_error):
+    """The ValueError that names the first thing a spread kernel cannot take,
+    in the order: order, types, contiguity, shapes (the bases', then
+    ``shape_error``, the launcher's own message or None), device."""
     if order not in ORDERS:
-        raise ValueError(f"order={order}: the kernel takes {ORDERS}")
-    if len(grid_shape) != 3:
-        raise ValueError(f"grid_shape {grid_shape}: three sizes")
-    if (not m_u0.is_cuda or m_u0.dtype != torch.int32
-            or not m_u0.is_contiguous() or m_u0.ndim != 2
-            or m_u0.shape[1] != 3):
-        raise ValueError("m_u0: needs a contiguous (N, 3) int32 CUDA tensor")
-    if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{name}: needs a contiguous float32 CUDA tensor")
-    if x.device != m_u0.device:
-        raise ValueError(f"{name}: on {x.device}, m_u0 on {m_u0.device}")
+        return ValueError(f"order={order}: the kernels take {ORDERS}")
+    if x.dtype != _F32:
+        return ValueError(f"{name}: needs float32, got {x.dtype}")
+    if idx.dtype != _I32:
+        return ValueError(f"bases: need int32, got {idx.dtype}")
+    if not (x.is_contiguous() and idx.is_contiguous()):
+        return ValueError(f"{name} and the bases: need contiguous tensors")
+    if idx.ndim != 2 or idx.shape[1] != 3:
+        return ValueError(f"bases: shape {tuple(idx.shape)}, expected (N, 3)")
+    if shape_error:
+        return ValueError(shape_error)
+    if not x.is_cuda:
+        return ValueError(f"{name}: needs a CUDA tensor, got {x.device}")
+    return ValueError(f"{name}: on {x.device}, the bases on {idx.device}")
+
+
+def _q_shape_error(q_points, idx, grid_shape, order):
+    """None if q_points is (N, C in CHANNELS, order^3) beside N bases and the
+    mesh has three sizes, else the message that says so."""
+    shape = q_points.shape
+    if (len(shape) == 3 and shape[1] in CHANNELS and shape[2] == order ** 3
+            and idx.shape[:1] == shape[:1] and len(grid_shape) == 3):
+        return None
+    return (f"q_points: shape {tuple(shape)} beside {idx.shape[0]} bases, "
+            f"expected (N, C in {CHANNELS}, {order ** 3}) and three mesh "
+            f"sizes, got {grid_shape}")
+
+
+def _mesh_shape_error(mesh, grid_shape):
+    """None if mesh is (C in CHANNELS, *grid_shape), else the message."""
+    shape = mesh.shape
+    if (len(shape) == 4 and shape[0] in CHANNELS
+            and shape[1:] == tuple(grid_shape)):
+        return None
+    return (f"mesh: shape {tuple(shape)}, expected (C in {CHANNELS}, "
+            f"*{tuple(grid_shape)})")
 
 
 def launch_spread(m_u0, q_points, grid_shape, order: int):
     """K4: (N, C, order^3) stencil values -> (C, K1, K2, K3) mesh."""
-    _check(m_u0, q_points, "q_points", grid_shape, order)
-    n, n_ch = q_points.shape[0], q_points.shape[1]
-    if n_ch not in CHANNELS or tuple(q_points.shape) != (n, n_ch, order ** 3) \
-            or m_u0.shape[0] != n:
-        raise ValueError(f"q_points: shape {tuple(q_points.shape)}, expected "
-                         f"(N, C in {CHANNELS}, {order ** 3})")
-    mesh = torch.zeros((n_ch, *grid_shape), device=q_points.device,
-                       dtype=torch.float32)
-    if n == 0:
-        return mesh
-    status = _lib().admp_spread(
-        m_u0.data_ptr(), q_points.data_ptr(), mesh.data_ptr(), n, n_ch, order,
-        *grid_shape, torch.cuda.current_stream(mesh.device).cuda_stream)
-    build.check(status, f"spread (order {order}, {n_ch} channels)")
-    launch_spread.launches += 1
-    launch_spread.by_shape[order, n_ch] += 1
+    dev = q_points.get_device()
+    shape_error = _q_shape_error(q_points, m_u0, grid_shape, order)
+    if shape_error or not _fits(m_u0, q_points, dev, order):
+        raise _refusal(m_u0, q_points, "q_points", order, shape_error)
+    n, n_ch, _ = q_points.shape
+    k1, k2, k3 = (int(k) for k in grid_shape)
+    mesh = torch.zeros(n_ch, k1, k2, k3, dtype=_F32, device=q_points.device)
+    if n:
+        status = _entry("admp_spread")(
+            _P(m_u0.data_ptr()), _P(q_points.data_ptr()), _P(mesh.data_ptr()),
+            n, n_ch, order, k1, k2, k3, _P(_raw_stream(dev)))
+        if status:
+            build.check(status, f"spread (order {order}, {n_ch} channels)")
+        launch_spread.launches += 1
+        launch_spread.by_shape[order, n_ch] += 1
     return mesh
 
 
@@ -151,22 +217,21 @@ launch_spread.by_shape = dict.fromkeys(SHAPES, 0)  # launches per (order, C)
 
 def launch_gather(m_u0, mesh, grid_shape, order: int):
     """K6: (C, K1, K2, K3) mesh -> (N, C, order^3) stencil values."""
-    _check(m_u0, mesh, "mesh", grid_shape, order)
-    n_ch = mesh.shape[0]
-    if n_ch not in CHANNELS or tuple(mesh.shape[1:]) != tuple(grid_shape):
-        raise ValueError(f"mesh: shape {tuple(mesh.shape)}, expected "
-                         f"(C in {CHANNELS}, {tuple(grid_shape)})")
+    dev = mesh.get_device()
+    shape_error = _mesh_shape_error(mesh, grid_shape)
+    if shape_error or not _fits(m_u0, mesh, dev, order):
+        raise _refusal(m_u0, mesh, "mesh", order, shape_error)
+    n_ch, k1, k2, k3 = mesh.shape
     n = m_u0.shape[0]
-    out = torch.empty((n, n_ch, order ** 3), device=mesh.device,
-                      dtype=torch.float32)
-    if n == 0:
-        return out
-    status = _lib().admp_gather(
-        m_u0.data_ptr(), mesh.data_ptr(), out.data_ptr(), n, n_ch, order,
-        *grid_shape, torch.cuda.current_stream(mesh.device).cuda_stream)
-    build.check(status, f"gather (order {order}, {n_ch} channels)")
-    launch_gather.launches += 1
-    launch_gather.by_shape[order, n_ch] += 1
+    out = torch.empty(n, n_ch, order ** 3, dtype=_F32, device=mesh.device)
+    if n:
+        status = _entry("admp_gather")(
+            _P(m_u0.data_ptr()), _P(mesh.data_ptr()), _P(out.data_ptr()), n,
+            n_ch, order, k1, k2, k3, _P(_raw_stream(dev)))
+        if status:
+            build.check(status, f"gather (order {order}, {n_ch} channels)")
+        launch_gather.launches += 1
+        launch_gather.by_shape[order, n_ch] += 1
     return out
 
 
@@ -313,41 +378,42 @@ def gather_tiled_torch(bins: TileBins, mesh, grid_shape, order: int):
     return out
 
 
-def _tiled_lib():
-    lib = build.load("spread_tiled")
-    if not getattr(lib, "_admp_typed", False):
-        for fn in (lib.admp_spread_tiled, lib.admp_gather_tiled):
-            fn.argtypes = [_P] * 5 + [_I] * 8 + [_P]
-            fn.restype = _I
-        lib._admp_typed = True
-    return lib
+def _bins_fit(bins: TileBins, order, dev):
+    """Whether the bins were made for this order and the kernels' tile, with
+    their permutation and offsets int32 on CUDA device ``dev``."""
+    perm, offsets = bins.perm, bins.offsets
+    return (bins.order == order and bins.tile == TILE
+            and perm.dtype is _I32 and offsets.dtype is _I32
+            and perm.get_device() == dev and offsets.get_device() == dev)
 
 
-def _check_bins(bins: TileBins, x, name, grid_shape, order):
-    if bins.order != order or bins.tile != TILE:
-        raise ValueError(f"bins of order {bins.order}, tile {bins.tile}; the "
-                         f"kernel takes order {order}, tile {TILE}")
-    _check(bins.base, x, name, grid_shape, order)
-    for t in (bins.perm, bins.offsets):
-        if t.dtype != torch.int32 or t.device != x.device:
-            raise ValueError("bins: int32 tensors on the mesh's device")
+def _bins_refusal(bins: TileBins, x, name, order, shape_error):
+    """_refusal for a tiled launcher, after the bins' order and tile."""
+    if not (bins.order == order and bins.tile == TILE):
+        return ValueError(f"bins of order {bins.order}, tile {bins.tile}; "
+                          f"the kernel takes order {order}, tile {TILE}")
+    if shape_error or not _fits(bins.base, x, x.get_device(), order):
+        return _refusal(bins.base, x, name, order, shape_error)
+    return ValueError("bins: int32 tensors on the mesh's device")
 
 
 def launch_spread_tiled(bins: TileBins, q_points, grid_shape, order: int):
     """K5: (N, C, order^3) stencil values -> (C, K1, K2, K3) mesh."""
-    _check_bins(bins, q_points, "q_points", grid_shape, order)
-    n, n_ch = q_points.shape[0], q_points.shape[1]
-    if n_ch not in CHANNELS or tuple(q_points.shape) != (n, n_ch, order ** 3) \
-            or bins.base.shape[0] != n:
-        raise ValueError(f"q_points: shape {tuple(q_points.shape)}, expected "
-                         f"(N, C in {CHANNELS}, {order ** 3})")
-    mesh = torch.empty((n_ch, *grid_shape), device=q_points.device,
-                       dtype=torch.float32)
-    status = _tiled_lib().admp_spread_tiled(
-        bins.base.data_ptr(), bins.perm.data_ptr(), bins.offsets.data_ptr(),
-        q_points.data_ptr(), mesh.data_ptr(), n_ch, order, *grid_shape, *TILE,
-        torch.cuda.current_stream(mesh.device).cuda_stream)
-    build.check(status, f"tiled spread (order {order}, {n_ch} channels)")
+    dev = q_points.get_device()
+    shape_error = _q_shape_error(q_points, bins.base, grid_shape, order)
+    if shape_error or not (_fits(bins.base, q_points, dev, order)
+                           and _bins_fit(bins, order, dev)):
+        raise _bins_refusal(bins, q_points, "q_points", order, shape_error)
+    n_ch = q_points.shape[1]
+    k1, k2, k3 = (int(k) for k in grid_shape)
+    mesh = torch.empty(n_ch, k1, k2, k3, dtype=_F32, device=q_points.device)
+    status = _entry("admp_spread_tiled")(
+        _P(bins.base.data_ptr()), _P(bins.perm.data_ptr()),
+        _P(bins.offsets.data_ptr()), _P(q_points.data_ptr()),
+        _P(mesh.data_ptr()), n_ch, order, k1, k2, k3, *TILE,
+        _P(_raw_stream(dev)))
+    if status:
+        build.check(status, f"tiled spread (order {order}, {n_ch} channels)")
     launch_spread_tiled.launches += 1
     launch_spread_tiled.by_shape[order, n_ch] += 1
     return mesh
@@ -359,23 +425,25 @@ launch_spread_tiled.by_shape = dict.fromkeys(SHAPES, 0)
 
 def launch_gather_tiled(bins: TileBins, mesh, grid_shape, order: int):
     """K7: (C, K1, K2, K3) mesh -> (N, C, order^3) stencil values."""
-    _check_bins(bins, mesh, "mesh", grid_shape, order)
-    n_ch = mesh.shape[0]
-    if n_ch not in CHANNELS or tuple(mesh.shape[1:]) != tuple(grid_shape):
-        raise ValueError(f"mesh: shape {tuple(mesh.shape)}, expected "
-                         f"(C in {CHANNELS}, {tuple(grid_shape)})")
+    dev = mesh.get_device()
+    shape_error = _mesh_shape_error(mesh, grid_shape)
+    if shape_error or not (_fits(bins.base, mesh, dev, order)
+                           and _bins_fit(bins, order, dev)):
+        raise _bins_refusal(bins, mesh, "mesh", order, shape_error)
+    n_ch, k1, k2, k3 = mesh.shape
     n = bins.base.shape[0]
-    out = torch.empty((n, n_ch, order ** 3), device=mesh.device,
-                      dtype=torch.float32)
-    if n == 0:
-        return out
-    status = _tiled_lib().admp_gather_tiled(
-        bins.base.data_ptr(), bins.perm.data_ptr(), bins.offsets.data_ptr(),
-        mesh.data_ptr(), out.data_ptr(), n_ch, order, *grid_shape, *TILE,
-        torch.cuda.current_stream(mesh.device).cuda_stream)
-    build.check(status, f"tiled gather (order {order}, {n_ch} channels)")
-    launch_gather_tiled.launches += 1
-    launch_gather_tiled.by_shape[order, n_ch] += 1
+    out = torch.empty(n, n_ch, order ** 3, dtype=_F32, device=mesh.device)
+    if n:
+        status = _entry("admp_gather_tiled")(
+            _P(bins.base.data_ptr()), _P(bins.perm.data_ptr()),
+            _P(bins.offsets.data_ptr()), _P(mesh.data_ptr()),
+            _P(out.data_ptr()), n_ch, order, k1, k2, k3, *TILE,
+            _P(_raw_stream(dev)))
+        if status:
+            build.check(status,
+                        f"tiled gather (order {order}, {n_ch} channels)")
+        launch_gather_tiled.launches += 1
+        launch_gather_tiled.by_shape[order, n_ch] += 1
     return out
 
 

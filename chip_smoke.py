@@ -11,7 +11,9 @@ Phases (any failure exits nonzero; no phase failure is caught):
      (the pair HVP K3 for kinds pol, uu and perm, every output), and the
      tiled spread and gather (K5, K7) at the 98k-atom shapes: (order 6, C=1)
      at 320^3 and 256^3 on the step's stencils, (4, 3) at 320^3 on random
-     ones;
+     ones, and K5 on one crowded tile (more atoms than its stage holds) at
+     (6, 1) and (4, 3), each K5 mesh the same on a second launch; K6 also on
+     stencil rows that wrap at K3;
   3. the MD path: the polarizable multipolar PME energy+force step of
      1000 waters (3000 atoms, lmax=2, rc 4 A, ethresh 1e-4, K3=128, the MD
      SCF profile), one cold step and 10 warm drift steps, plus one
@@ -47,7 +49,18 @@ Phases (any failure exits nonzero; no phase failure is caught):
      256^3 (median of 3 x 5 steps), one profiler window each of the MD,
      full-force-field and 98k steps, and each kernel beside its plain
      version, its bound on the card and, where one exists, the one PyTorch
-     call that computes the same function.
+     call that computes the same function (at the 98k shapes too), and the
+     host us per call of K6's and K5's launchers.
+
+    python3 chip_smoke.py --launchers DIR
+
+prints only that last line, for the admp_tpu_torch in DIR (another commit's
+checkout), so that two launchers compare in one run on the card, and
+
+    python3 chip_smoke.py --kernels DIR
+
+only the device times of K5 and K6 built from this tree's sources and from
+DIR's, on the same inputs in one process.
 Phase 2 also holds the three-channel spread and gather (K4, K6 at C=3) on the
 dispersion stencil at orders 4 and 6.
 Each path's launch counts are set to 0 just before it runs and read just
@@ -57,6 +70,8 @@ after. The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
 import pathlib
 import statistics
@@ -113,6 +128,8 @@ FF_FIT_LR = 0.1
 N98_SIDE, N98_JITTER = 32, 0.1
 R0_OH, COUPLING = 0.9572, 0.4
 K98, K98_ALT = 320, 256
+# K5's crowded case: atoms in one tile, ~40 times what its stage holds
+N_CROWD = 2000
 N98_TIME_STEPS = 5
 # its first step, kernel f32 against plain f32 and f64. Energy: |dE| over
 # the largest of its terms (the total is a small residue of ~3e7 kJ/mol
@@ -146,15 +163,23 @@ def require(cond, what):
         raise SystemExit(f"FAILED: {what}")
 
 
-def cuda_time_ms(fn, n=20, warmup=3):
+def cuda_time_ms(fn, n=None, warmup=3):
     """(ms per call on the card's timeline between CUDA events over n
     back-to-back calls, which includes any host enqueue gap; ms per call of
-    device kernel time alone, from torch.profiler)."""
+    device kernel time alone, from torch.profiler). n defaults to 200 for a
+    call that takes under 50 us with its synchronize (its time is mostly the
+    host's, which varies), else 20. A profile that caught no kernel is taken
+    again."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if n is None:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        n = 200 if time.perf_counter() - t0 < 5e-5 else 20
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -162,12 +187,16 @@ def cuda_time_ms(fn, n=20, warmup=3):
         fn()
     stop.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    device_us = 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        if device_us > 0:
+            break
     return start.elapsed_time(stop) / n, device_us / 1e3 / n
 
 
@@ -409,10 +438,18 @@ def check_spread(w, record):
                           dtype=torch.float32)
     out_k = S.launch_gather(m_u0, g_mesh, grid, 6)
     out_p = S.gather_torch(m_u0, g_mesh, grid, 6)
+    # every third atom moved to the last z plane: its stencil rows wrap at K3
+    m_wrap = m_u0.clone()
+    m_wrap[::3, 2] = grid[2] - 1
+    wrap_k = S.launch_gather(m_wrap, g_mesh, grid, 6)
+    wrap_p = S.gather_torch(m_wrap, g_mesh, grid, 6)
     torch.cuda.synchronize()
     gerr = float((out_k - out_p).abs().max())
-    log(f"gather order 6: bitwise equal {bool(torch.equal(out_k, out_p))}")
+    log(f"gather order 6: bitwise equal {bool(torch.equal(out_k, out_p))}, "
+        f"on rows that wrap at K3 {bool(torch.equal(wrap_k, wrap_p))}")
     require(torch.equal(out_k, out_p), "gather differs from plain gather")
+    require(torch.equal(wrap_k, wrap_p),
+            "gather differs from plain gather on rows that wrap at K3")
     record["spread"]["max_abs_err"] = err
     record["gather"]["max_abs_err"] = gerr
     record["_spread_inputs"] = (m_u0, q, g_mesh)
@@ -979,10 +1016,27 @@ def large_stencil(w, grid, order=6):
     return m_u0.contiguous(), q.reshape(q.shape[0], 1, -1).contiguous()
 
 
+def crowded_stencil(dev, grid, order, n_ch, n=N_CROWD):
+    """n atoms whose bases all lie in one core tile of the grid (more than
+    K5's stage holds: 48 rows at (6, 1), 54 at (4, 3)), random stencil
+    values."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    rng = np.random.default_rng(10)
+    corner = np.array([t * 3 for t in S.TILE]) + order // 2
+    bases = corner + np.stack([rng.integers(0, t, n) for t in S.TILE], 1)
+    m_u0 = torch.tensor(bases % np.array(grid), device=dev, dtype=torch.int32)
+    q = torch.tensor(rng.standard_normal((n, n_ch, order ** 3)), device=dev,
+                     dtype=torch.float32)
+    return m_u0, q
+
+
 def check_spread_tiled(w, record):
     """K5 and K7 against their plain versions (and the plain spread and
     gather) at the 98k shapes: (6, 1) at 320^3 and 256^3 on the step's
-    stencils, (4, 3) at 320^3 on random stencil values."""
+    stencils, (4, 3) at 320^3 on random stencil values, and K5 on one
+    crowded tile at (6, 1) and (4, 3). K5 must give the same mesh on a
+    second launch."""
     from admp_tpu_torch.ops.cuda import spread as S
     from admp_tpu_torch.ops.reciprocal import mesh_coordinates
 
@@ -996,16 +1050,21 @@ def check_spread_tiled(w, record):
     q = torch.tensor(rng.standard_normal((m_u0.shape[0], 3, 64)), device=dev,
                      dtype=torch.float32)
     cases.append((grid, 4, m_u0.contiguous(), q))
+    for order, n_ch in ((6, 1), (4, 3)):
+        cases.append((grid, order) + crowded_stencil(dev, grid, order, n_ch))
     for grid, order, m_u0, q in cases:
         n_ch = q.shape[1]
         bins = S.tile_bins(m_u0, grid, S.TILE, order)
+        crowd = int((bins.offsets[1:] - bins.offsets[:-1]).max())
         mesh_k = S.launch_spread_tiled(bins, q, grid, order)
+        again = S.launch_spread_tiled(bins, q, grid, order)
         mesh_t = S.spread_tiled_torch(bins, q, grid, order)
         mesh_p = S.spread_torch(m_u0, q, grid, order)
         torch.cuda.synchronize()
         scale = float(mesh_t.abs().max())
         err = float((mesh_k - mesh_t).abs().max())
         err_p = float((mesh_k - mesh_p).abs().max())
+        det = bool(torch.equal(mesh_k, again))
         g_mesh = torch.tensor(rng.standard_normal((n_ch, *grid)), device=dev,
                               dtype=torch.float32)
         out_k = S.launch_gather_tiled(bins, g_mesh, grid, order)
@@ -1014,13 +1073,17 @@ def check_spread_tiled(w, record):
                 and torch.equal(out_k, S.gather_torch(m_u0, g_mesh, grid,
                                                       order)))
         log(f"tiled spread (K5) order {order} C={n_ch} N={m_u0.shape[0]} "
-            f"grid={grid}: max abs err {err:.3e} = {err / scale:.3e} x "
-            f"max|mesh| vs its plain version, {err_p / scale:.3e} vs the "
-            f"plain spread; tiled gather (K7) bitwise equal {same}")
+            f"grid={grid}, at most {crowd} atoms in a bin: max abs err "
+            f"{err:.3e} = {err / scale:.3e} x max|mesh| vs its plain "
+            f"version, {err_p / scale:.3e} vs the plain spread; the same "
+            f"mesh on a second launch {det}; tiled gather (K7) bitwise "
+            f"equal {same}")
         require(err <= TOL_SPREAD * scale and err_p <= TOL_SPREAD * scale,
                 f"tiled spread order {order} C={n_ch} {grid}: {err / scale}")
+        require(det, f"tiled spread order {order} C={n_ch} {grid}: another "
+                "mesh on a second launch")
         require(same, f"tiled gather order {order} C={n_ch} {grid} differs")
-        if grid == (K98,) * 3 and order == 6:
+        if "_tiled_inputs" not in record:  # the step's stencils at 320^3
             record["spread_tiled"]["max_abs_err"] = err
             record["gather_tiled"]["max_abs_err"] = float(
                 (out_k - out_t).abs().max())
@@ -1270,8 +1333,9 @@ def tiled_calls(m_u0, q, g_mesh, order):
 
 
 def time_large_kernels(w, card):
-    """K5/K7 beside K4/K6 on the same 98k inputs at 320^3 and 256^3 (the
-    one-call comparison), and the binning that K5/K7 need; logged."""
+    """K5/K7 beside K4/K6 on the same 98k inputs at 320^3 and 256^3, each
+    with its bound and the one PyTorch call that computes its function
+    (index_add / take), and the binning that K5/K7 need; logged."""
     from admp_tpu_torch.ops.cuda import spread as S
 
     rng = np.random.default_rng(9)
@@ -1285,10 +1349,163 @@ def time_large_kernels(w, card):
         calls["tile_bins"] = (lambda: S.tile_bins(m_u0, grid, S.TILE, 6),)
         for name, c in calls.items():
             ms, dev_ms = cuda_time_ms(c[0])
-            extra = (f", bound {c[3][0]:.4f} ms ({c[3][1]})" if len(c) > 3
-                     else "")
+            extra = ""
+            if len(c) > 3:
+                lib_ms, lib_dev_ms = cuda_time_ms(c[2])
+                extra = (f", one PyTorch call {lib_ms:.4f} ms/call "
+                         f"({lib_dev_ms:.4f} ms device), bound "
+                         f"{c[3][0]:.4f} ms ({c[3][1]})")
             log(f"phase 4 [{card}]: 98k {grid} {name}: {ms:.4f} ms/call "
                 f"({dev_ms:.4f} ms device){extra}")
+
+
+def launcher_host_us(S, dev, rounds=5, n=1000, parts=False):
+    """Host us per call (time.perf_counter over n back-to-back calls, no
+    synchronize inside: the launches queue up on the card, so this is the
+    caller's own host work), the median of ``rounds`` rounds that take
+    every call in turn: K6's launcher at the MD shapes ((6, 1), 3000 atoms
+    on (96, 96, 128)) and the full force field's ((4, 3) on 128^3), one
+    torch.take of the same function beside each, and K5's launcher at
+    98,304 atoms on 320^3. The bases and values are random from a seed: the
+    host work does not depend on them. ``S`` is the ops/cuda/spread module
+    under test. With ``parts``, also two pieces of K6's launcher at the MD
+    shapes alone: torch.empty of its output, and the C entry point's call
+    (ctypes and the launch) into a buffer made beforehand."""
+    rng = np.random.default_rng(14)
+
+    def inputs(n_atoms, grid, n_ch, order):
+        m_u0 = torch.tensor(np.stack([rng.integers(0, k, n_atoms)
+                                      for k in grid], 1),
+                            device=dev, dtype=torch.int32)
+        mesh = torch.tensor(rng.standard_normal((n_ch, *grid)), device=dev,
+                            dtype=torch.float32)
+        q = torch.tensor(rng.standard_normal((n_atoms, n_ch, order ** 3)),
+                         device=dev, dtype=torch.float32)
+        return m_u0, mesh, q
+
+    calls = {}
+    for grid, n_ch, order in (((96, 96, K3), 1, 6),
+                              ((K_FF,) * 3, 3, DISP_ORDER)):
+        m_u0, mesh, _ = inputs(3000, grid, n_ch, order)
+        kcube = mesh[0].numel()
+        idx = (S.flat_stencil_indices(m_u0, grid, order)[:, None, :]
+               + (torch.arange(n_ch, device=dev) * kcube)[None, :, None])
+        calls[f"gather ({order}, {n_ch})"] = functools.partial(
+            S.launch_gather, m_u0, mesh, grid, order)
+        calls[f"torch.take ({order}, {n_ch})"] = functools.partial(
+            torch.take, mesh, idx)
+        if parts and n_ch == 1:
+            out = torch.empty(3000, 1, order ** 3, device=dev)
+            P = ctypes.c_void_p
+            args = (P(m_u0.data_ptr()), P(mesh.data_ptr()), P(out.data_ptr()),
+                    3000, 1, order, *grid, P(S._raw_stream(0)))
+            calls["torch.empty (6, 1)"] = functools.partial(
+                torch.empty, 3000, 1, order ** 3, dtype=torch.float32,
+                device=dev)
+            calls["entry call (6, 1)"] = functools.partial(
+                S._entry("admp_gather"), *args)
+    grid98 = (K98,) * 3
+    m_u0, _, q = inputs(98304, grid98, 1, 6)
+    bins = S.tile_bins(m_u0, grid98, S.TILE, 6)
+    calls["spread_tiled (6, 1) 98k"] = functools.partial(
+        S.launch_spread_tiled, bins, q, grid98, 6)
+    times = {k: [] for k in calls}
+    for _ in range(rounds):
+        for label, fn in calls.items():
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times[label].append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def kernels_against(other, dev, card, repeats=5):
+    """Device ms per call of K6 and K5 from this tree's sources and from
+    those of the checkout in ``other`` (built there by its own build.py and
+    loaded beside this tree's: the C interfaces are the same), on the same
+    inputs in one process, the two taken in turn, median of ``repeats``
+    profiles each: K6 at the MD shapes, at the full force field's (4, 3)
+    and at 98k on 320^3 and 256^3; K5 at 98k on 320^3 and 256^3. Logged."""
+    from admp_tpu_torch.ops.cuda import build, spread as S
+
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from admp_tpu_torch.ops.cuda import build as b; "
+            "b.build(('spread', 'spread_tiled')); "
+            "print(b.library_path('spread'), b.library_path('spread_tiled'))")
+    theirs = subprocess.run([sys.executable, "-c", code, other],
+                            capture_output=True, text=True, check=True,
+                            timeout=900).stdout.split()
+    build.build(("spread", "spread_tiled"))
+    libs = {"this tree": [ctypes.PyDLL(str(build.library_path(n)))
+                          for n in ("spread", "spread_tiled")],
+            other: [ctypes.PyDLL(path) for path in theirs]}
+    P = ctypes.c_void_p
+    stream = P(S._raw_stream(0))
+    rng = np.random.default_rng(15)
+
+    def mesh_of(shape):
+        return torch.tensor(rng.standard_normal(shape), device=dev,
+                            dtype=torch.float32)
+
+    w = build_workload(dev)
+    m_md = spread_inputs(w)[0]
+    m_ff = disp_stencil(w, DISP_ORDER)[0]
+    cases = [("K6 MD (6, 1)", m_md, mesh_of((1, *w["grid"])), 6),
+             (f"K6 full FF ({DISP_ORDER}, 3)", m_ff,
+              mesh_of((3, K_FF, K_FF, K_FF)), DISP_ORDER)]
+    w98 = build_large(dev)
+    tiled = []
+    for k in (K98, K98_ALT):
+        m98, q98 = large_stencil(w98, (k,) * 3)
+        cases.append((f"K6 98k {k}^3 (6, 1)", m98, mesh_of((1, k, k, k)), 6))
+        tiled.append((f"K5 98k {k}^3 (6, 1)", S.tile_bins(m98, (k,) * 3),
+                      q98, (k,) * 3))
+
+    def gather(lib, m_u0, mesh, order, out):
+        return lambda: lib[0].admp_gather(
+            P(m_u0.data_ptr()), P(mesh.data_ptr()), P(out.data_ptr()),
+            m_u0.shape[0], mesh.shape[0], order, *mesh.shape[1:], stream)
+
+    def spread_tiled(lib, bins, q, grid, out):
+        return lambda: lib[1].admp_spread_tiled(
+            P(bins.base.data_ptr()), P(bins.perm.data_ptr()),
+            P(bins.offsets.data_ptr()), P(q.data_ptr()), P(out.data_ptr()),
+            q.shape[1], 6, *grid, *S.TILE, stream)
+
+    calls = {}
+    for label, m_u0, mesh, order in cases:
+        ref = S.gather_torch(m_u0, mesh, tuple(mesh.shape[1:]),
+                             order).contiguous()
+        for name, lib in libs.items():
+            out = torch.empty_like(ref)
+            calls[label, name] = gather(lib, m_u0, mesh, order, out)
+            require(calls[label, name]() == 0, f"{label} of {name}: launch")
+            torch.cuda.synchronize()
+            require(torch.equal(out, ref), f"{label} of {name}: not the "
+                    "plain gather's values")
+    for label, bins, q, grid in tiled:
+        meshes = []
+        for name, lib in libs.items():
+            meshes.append(torch.empty(1, *grid, device=dev))
+            calls[label, name] = spread_tiled(lib, bins, q, grid, meshes[-1])
+            require(calls[label, name]() == 0, f"{label} of {name}: launch")
+        torch.cuda.synchronize()
+        scale = float(meshes[0].abs().max())
+        require(float((meshes[0] - meshes[1]).abs().max())
+                <= TOL_SPREAD * scale, f"{label}: the two meshes differ")
+    times = {key: [] for key in calls}
+    for _ in range(repeats):
+        for key, fn in calls.items():
+            times[key].append(cuda_time_ms(fn, n=20)[1])
+    for label in dict.fromkeys(k[0] for k in calls):
+        log(f"[{card}] {label}: device ms per call " + ", ".join(
+            f"{name} {statistics.median(times[label, name]):.4f} "
+            f"({min(times[label, name]):.4f}-{max(times[label, name]):.4f})"
+            for name in libs))
 
 
 def time_kernels(record):
@@ -1357,7 +1574,13 @@ def main():
         print("no CUDA device: chip_smoke.py runs only on the GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    # --launchers DIR: only the launcher host-us line, of the admp_tpu_torch
+    # in DIR (another commit's checkout, to compare in one run);
+    # --kernels DIR: only K5's and K6's device times, this tree's beside
+    # DIR's in one process
+    mode = sys.argv[1] if len(sys.argv) > 2 else None
+    other = sys.argv[2] if mode == "--launchers" else None
+    sys.path.insert(0, other or str(ROOT))
     from admp_tpu_torch.ops.cuda import build
 
     dev = torch.device("cuda:0")
@@ -1365,6 +1588,16 @@ def main():
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
+    if other:
+        from admp_tpu_torch.ops.cuda import spread as S
+        build.build(("spread", "spread_tiled"))
+        log(f"[{card}] {S.__file__}: launcher host us per call: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in
+                        launcher_host_us(S, dev).items()))
+        return 0
+    if mode == "--kernels":
+        kernels_against(sys.argv[2], dev, card)
+        return 0
 
     t0 = time.perf_counter()
     logs = build.build()
@@ -1482,6 +1715,10 @@ def main():
         for key, ms_k, count in top:
             log(f"  {ms_k:8.4f} ms/step  x{count:<4d} {key}")
     time_large_kernels(w98, card)
+    from admp_tpu_torch.ops.cuda import spread as S
+    log(f"phase 4 [{card}]: launcher host us per call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in
+                    launcher_host_us(S, dev, parts=True).items()))
     time_kernels(record)
     for name, r in record.items():
         lib = ("none" if r["library_ms"] is None

@@ -19,9 +19,12 @@ dispersion force (energy 1e-5 relative, forces and dE/dc_list 1e-4 relative
 RMSE) against their plain paths. The tiled pair: K5 within 1e-5 max|mesh| of
 its plain version and of the plain spread and the same on every run (its
 sum order is fixed), K7 bit for bit, on grids the tile divides and does
-not, with atoms outside the box; the plain versions under gradcheck at
-float64; second-order pulls on the kernels; and 'auto' on a 256^3 mesh
-launching K5/K7 and not K4/K6.
+not, with atoms outside the box; K5 on a crowded tile that holds more
+atoms than its stage (chunks, in a fixed order); the plain versions under
+gradcheck at float64; second-order pulls on the kernels; and 'auto' on a
+256^3 mesh launching K5/K7 and not K4/K6. K6 bit for bit on axes shorter
+than the stencil and on rows that wrap at K3, on a side stream, and the
+launchers' refusal of bases on another device.
 """
 
 import numpy as np
@@ -369,6 +372,75 @@ def test_tiled_spread_and_gather_match_plain(dev, grid, order, channels,
     assert (S.launch_spread_tiled.by_shape[order, channels] - before[0],
             S.launch_gather_tiled.by_shape[order, channels] - before[1]) == (
                 2, 1)
+
+
+@pytest.mark.parametrize("order,channels", [(6, 1), (4, 3)])
+def test_tiled_spread_walks_a_crowded_bin_in_chunks(dev, order, channels):
+    """200 atoms whose bases all lie in one core tile, more than K5's stage
+    holds (48 rows at (6, 1), 54 at (4, 3)), beside 300 spread over the
+    grid: K5 walks the tile's list in chunks, in a fixed order."""
+    rng = np.random.default_rng(12)
+    grid, n = (64, 64, 64), 200
+    corner = np.array([16, 24, 32]) + order // 2  # a tile corner, after wrap
+    crowd = corner + np.stack([rng.integers(0, t, n) for t in S.TILE], 1)
+    bases = np.concatenate([crowd, rng.integers(0, 64, (300, 3))])
+    m_u0 = torch.tensor(bases, device=dev, dtype=torch.int32)
+    pts = torch.tensor(rng.standard_normal((500, channels, order ** 3)),
+                       device=dev, dtype=torch.float32)
+    bins = S.tile_bins(m_u0, grid, S.TILE, order)
+    assert int((bins.offsets[1:] - bins.offsets[:-1]).max()) >= n
+    before = S.launch_spread_tiled.by_shape[order, channels]
+    mesh_k = S.launch_spread_tiled(bins, pts, grid, order)
+    again = S.launch_spread_tiled(bins, pts, grid, order)
+    mesh_t = S.spread_tiled_torch(bins, pts, grid, order)
+    mesh_p = S.spread_torch(m_u0, pts, grid, order)
+    torch.cuda.synchronize()
+    scale = float(mesh_p.abs().max())
+    assert float((mesh_k - mesh_t).abs().max()) <= 1e-5 * scale
+    assert float((mesh_k - mesh_p).abs().max()) <= 1e-5 * scale
+    assert torch.equal(mesh_k, again)  # the chunks sum in a fixed order
+    assert S.launch_spread_tiled.by_shape[order, channels] - before == 2
+
+
+@pytest.mark.parametrize("grid", [(5, 4, 7), (9, 7, 3), (20, 16, 37)])
+@pytest.mark.parametrize("order,channels", [(6, 1), (6, 3), (4, 1), (4, 3)])
+def test_gather_rows_on_short_and_wrapping_axes(dev, grid, order, channels):
+    """K6 bit for bit on axes shorter than the stencil and on stencil rows
+    that wrap at K3; one launch per call, counted per (order, C)."""
+    rng = np.random.default_rng(13)
+    n = 300
+    bases = np.stack([rng.integers(-9, k + 9, n) for k in grid], 1)
+    bases[:20, 2] = grid[2] - 1  # these rows run past K3 and wrap
+    m_u0 = torch.tensor(bases, device=dev, dtype=torch.int32)
+    mesh = torch.randn((channels, *grid), device=dev)
+    before = S.launch_gather.by_shape[order, channels]
+    out = S.launch_gather(m_u0, mesh, grid, order)
+    assert torch.equal(out, S.gather_torch(m_u0, mesh, grid, order))
+    assert S.launch_gather.by_shape[order, channels] - before == 1
+
+
+def test_gather_launches_on_the_current_stream(dev):
+    """The launcher reads the current stream on every call: on a side
+    stream K6 runs after the work enqueued there before it."""
+    grid = (40, 36, 48)
+    m_u0, _ = _tiled_stencil(dev, grid, 6, 1, 0)
+    mesh = torch.randn((1, *grid), device=dev)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        scaled = mesh * 3.0
+        out = S.launch_gather(m_u0, scaled, grid, 6)
+    side.synchronize()
+    assert torch.equal(out, S.gather_torch(m_u0, mesh * 3.0, grid, 6))
+
+
+def test_spread_launchers_refuse_mixed_devices(dev):
+    m_u0, pts = _tiled_stencil(dev, (40, 36, 48), 6, 1, 0)
+    mesh = torch.randn((1, 40, 36, 48), device=dev)
+    with pytest.raises(ValueError, match="the bases on cpu"):
+        S.launch_gather(m_u0.cpu(), mesh, (40, 36, 48), 6)
+    with pytest.raises(ValueError, match="the bases on cpu"):
+        S.launch_spread(m_u0.cpu(), pts, (40, 36, 48), 6)
 
 
 def test_tiled_plain_versions_gradcheck_f64(dev):

@@ -1,21 +1,31 @@
 // The per-pair energy of admp_tpu_torch's real-space pair kernels and the
-// gradient body shared by K2 (csrc/pairs.cu) and K3 (csrc/pair_hvp.cu).
+// gradient bodies of K2 (csrc/pairs.cu) and K3 (csrc/pair_hvp.cu).
 //
 // The energy of one pair (pair_energy below) is written once, templated over
 // its scalar type. Forward-mode dual numbers Dual<N, S> carry N tangents over
-// a base scalar S, which is `float` or itself a one-tangent dual (Dual1), so
-// the same source gives the energy (float), its gradient (Dual<N, float>,
-// K2) and the derivative of that gradient along one direction
-// (Dual<N, Dual1>, K3). The gradient body pair_grad runs in ceil(NV / N)
-// passes, each seeding N of the pair's NV independent inputs (the wrapped
-// displacement, both sites' features, the differentiable scale rows and
-// kappa), and chain-rules the minimum-image wrap by hand in S arithmetic.
-// Row layouts are documented in admp_tpu_torch/ops/cuda/pairs.py.
+// a base scalar S, which is `float` or itself a one-tangent dual (Dual1).
+// K2's body, pair_grad_mixed / pair_energy_grad, is mixed mode, each sweep in
+// the direction with few inputs: a forward in S that keeps the frame, the
+// rotated harmonics and the coefficients; a reverse by hand through the
+// bilinear contractions (perm_adjoint, induced_adjoint) and the transposed
+// rotations (rotate_harm_t, rotate_dipole_t) for the features; and the same
+// templated source in forward mode over the narrow inputs only (Dual<3>
+// over the displacement through the frame and the rotations, Dual<3> and
+// Dual<7> over the coefficient functions' scalar inputs), so each branch of
+// the forward takes autograd's side. It is instantiated at S = float; at
+// S = Dual1 it gives the derivatives K3 needs. K3 still runs pair_grad: the
+// energy in Dual<N, Dual1> in ceil(NV / N) passes over the pair's NV
+// independent inputs (the wrapped displacement, both sites' features, the
+// differentiable scale rows and kappa). Both chain-rule the minimum-image
+// wrap by hand in S arithmetic (wrap_grad). Row layouts are documented in
+// admp_tpu_torch/ops/cuda/pairs.py.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -44,6 +54,12 @@ struct Dual {
   S d[N];
   __device__ __forceinline__ Dual() {}
   __device__ __forceinline__ Dual(float x) : v(x) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) d[k] = S(0.f);
+  }
+  // a constant of a dual base scalar (tangents zero)
+  template <class U = S, typename std::enable_if<!std::is_same<U, float>::value, int>::type = 0>
+  __device__ __forceinline__ Dual(const S& x) : v(x) {
 #pragma unroll
     for (int k = 0; k < N; ++k) d[k] = S(0.f);
   }
@@ -148,6 +164,24 @@ __device__ __forceinline__ Dual<N, S> operator/(float a, const Dual<N, S>& b) {
   return r;
 }
 
+// A dual over a dual base scalar B' = Dual<M, B> times a B': the products a
+// gradient body in base scalar S = Dual<M, B> takes between its S values and
+// its Dual<N, S> passes (for S = float the float overloads above do)
+template <int N, int M, class B>
+__device__ __forceinline__ Dual<N, Dual<M, B>> operator*(const Dual<N, Dual<M, B>>& a,
+                                                        const Dual<M, B>& b) {
+  Dual<N, Dual<M, B>> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * b;
+  return r;
+}
+template <int N, int M, class B>
+__device__ __forceinline__ Dual<N, Dual<M, B>> operator*(const Dual<M, B>& a,
+                                                        const Dual<N, Dual<M, B>>& b) {
+  return b * a;
+}
+
 // Elementary functions: the float overloads are the forward's, the Dual
 // overloads carry the exact derivative of the same call, recursively over
 // the base scalar.
@@ -210,23 +244,26 @@ struct Layout {
 
 __device__ __forceinline__ int scale_row(int k) { return k == 0 ? 0 : 2; }
 
-template <class T, int LMAX>
-__device__ __forceinline__ void rotate_harm(const T* q, const T* f, T* out) {
+// q (harmonic order) -> QI frame f; the harmonics may be of another scalar
+// type Q than the frame (K2 rotates its S features by a frame that is a
+// dual over the displacement)
+template <class T, int LMAX, class Q = T>
+__device__ __forceinline__ void rotate_harm(const Q* q, const T* f, T* out) {
   out[0] = q[0];
   if constexpr (LMAX >= 1) {
-    const T cx = q[2], cy = q[3], cz = q[1];
+    const Q cx = q[2], cy = q[3], cz = q[1];
     out[2] = f[0] * cx + f[1] * cy + f[2] * cz;
     out[3] = f[3] * cx + f[4] * cy + f[5] * cz;
     out[1] = f[6] * cx + f[7] * cy + f[8] * cz;
   }
   if constexpr (LMAX >= 2) {
     const float h = kRt3 / 2.0f;
-    const T txx = -0.5f * q[4] + h * q[7];
-    const T tyy = -0.5f * q[4] - h * q[7];
-    const T tzz = q[4];
-    const T txy = h * q[8];
-    const T txz = h * q[5];
-    const T tyz = h * q[6];
+    const Q txx = -0.5f * q[4] + h * q[7];
+    const Q tyy = -0.5f * q[4] - h * q[7];
+    const Q tzz = q[4];
+    const Q txy = h * q[8];
+    const Q txz = h * q[5];
+    const Q tyz = h * q[6];
     // T' = F T F^T via u[a] = F[a] . T (T symmetric)
     const T ux_x = f[0] * txx + f[1] * txy + f[2] * txz;
     const T ux_y = f[0] * txy + f[1] * tyy + f[2] * tyz;
@@ -252,9 +289,9 @@ __device__ __forceinline__ void rotate_harm(const T* q, const T* f, T* out) {
 }
 
 // harmonic-order (z, x, y) dipole -> QI frame, harmonic order
-template <class T>
-__device__ __forceinline__ void rotate_dipole(const T* u, const T* f, T* out) {
-  const T cx = u[1], cy = u[2], cz = u[0];
+template <class T, class Q = T>
+__device__ __forceinline__ void rotate_dipole(const Q* u, const T* f, T* out) {
+  const Q cx = u[1], cy = u[2], cz = u[0];
   out[1] = f[0] * cx + f[1] * cy + f[2] * cz;
   out[2] = f[3] * cx + f[4] * cy + f[5] * cz;
   out[0] = f[6] * cx + f[7] * cy + f[8] * cz;
@@ -429,6 +466,33 @@ __device__ __forceinline__ void uu_coefficients(const T& r, const T& t1, const T
   m1 = d3 * (td1m + e2);
 }
 
+// The quasi-internal frame f (rows: local x, y, z) of displacement d: z
+// along d, x from a degeneracy-aware seed (``degenerate``: the raw y and z
+// of the two sites are equal) orthogonalized against z, y = z x x
+template <class T>
+__device__ __forceinline__ void qi_frame(const T& dx, const T& dy, const T& dz, const T& rinv,
+                                         bool degenerate, T* f) {
+  f[6] = dx * rinv;
+  f[7] = dy * rinv;
+  f[8] = dz * rinv;
+  const float seedx = degenerate ? 0.f : 1.f;
+  T vx = f[6] + seedx;
+  T vy = f[7] + (1.f - seedx);
+  T vz = f[8];
+  const T dot = f[6] * vx + f[7] * vy + f[8] * vz;
+  vx = vx - f[6] * dot;
+  vy = vy - f[7] * dot;
+  vz = vz - f[8] * dot;
+  const T nsq = vx * vx + vy * vy + vz * vz;
+  const T ninv = val(nsq) < 1e-12f ? T(0.f) : 1.0f / dsqrt(nsq);
+  f[0] = vx * ninv;
+  f[1] = vy * ninv;
+  f[2] = vz * ninv;
+  f[3] = f[7] * f[2] - f[8] * f[1];
+  f[4] = f[8] * f[0] - f[6] * f[2];
+  f[5] = f[6] * f[1] - f[7] * f[0];
+}
+
 // Energy of one unmasked pair from its wrapped displacement d, the raw-y/z
 // degeneracy flag, the two feature rows (columns 3.. of the table), the
 // differentiable scale rows and kappa.
@@ -449,27 +513,8 @@ __device__ __forceinline__ T pair_energy(const T& dx, const T& dy, const T& dz,
     return (m0 - m1) * uj_z * ui_z + m1 * ui_dot_uj;
   } else {
     constexpr int NH = Layout<KIND, LMAX>::NH;
-    // quasi-internal frame: z along d, x from a degeneracy-aware seed
     T f[9];
-    f[6] = dx * rinv;
-    f[7] = dy * rinv;
-    f[8] = dz * rinv;
-    const float seedx = degenerate ? 0.f : 1.f;
-    T vx = f[6] + seedx;
-    T vy = f[7] + (1.f - seedx);
-    T vz = f[8];
-    const T dot = f[6] * vx + f[7] * vy + f[8] * vz;
-    vx = vx - f[6] * dot;
-    vy = vy - f[7] * dot;
-    vz = vz - f[8] * dot;
-    const T nsq = vx * vx + vy * vy + vz * vz;
-    const T ninv = val(nsq) < 1e-12f ? T(0.f) : 1.0f / dsqrt(nsq);
-    f[0] = vx * ninv;
-    f[1] = vy * ninv;
-    f[2] = vz * ninv;
-    f[3] = f[7] * f[2] - f[8] * f[1];
-    f[4] = f[8] * f[0] - f[6] * f[2];
-    f[5] = f[6] * f[1] - f[7] * f[0];
+    qi_frame(dx, dy, dz, rinv, degenerate, f);
     T qi[NH], qj[NH];
     rotate_harm<T, LMAX>(fi, f, qi);
     rotate_harm<T, LMAX>(fj, f, qj);
@@ -550,6 +595,47 @@ __device__ __forceinline__ Dual<NT, S> seed(const S& v, int slot) {
   return r;
 }
 
+// The per-pair outputs of a masked pair: zeros (oi, oj: its two output rows)
+template <class L>
+__device__ __forceinline__ void zero_pair(int p, int C, float* __restrict__ oi,
+                                          float* __restrict__ oj, float* __restrict__ dscl,
+                                          float* __restrict__ dct) {
+  for (int k = 0; k < L::F; ++k) {
+    oi[k] = 0.f;
+    oj[k] = 0.f;
+  }
+  for (int r = 0; r < L::NSCL; ++r) dscl[r * C + p] = 0.f;
+  if (dct != nullptr) dct[p] = 0.f;
+}
+
+// Hand chain rule of the wrap, from gd = d(ct e)/dd: d = s' box,
+// s' = s - floor(s + 1/2), s = raw binv (floor has zero derivative); in S,
+// so that K3 keeps the position x box, position x box-inverse and box x
+// box-inverse terms. Writes the position columns of the output rows oi, oj,
+// adds the box and box-inverse gradients to sg.
+template <class S>
+__device__ __forceinline__ void wrap_grad(const Wrapped<S>& w, const S* box, const S* binv,
+                                          const S* gd, float* __restrict__ oi,
+                                          float* __restrict__ oj, float* sg) {
+  S gs[3];  // dE/ds'
+#pragma unroll
+  for (int c = 0; c < 3; ++c) gs[c] = box[3 * c] * gd[0] + box[3 * c + 1] * gd[1] + box[3 * c + 2] * gd[2];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const S g = binv[3 * m] * gs[0] + binv[3 * m + 1] * gs[1] + binv[3 * m + 2] * gs[2];
+    oi[m] = part(g);
+    oj[m] = -part(g);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sg[1 + 3 * c + k] += part(gd[k] * w.s[c]);     // box[c][k]
+      sg[10 + 3 * k + c] += part(gs[c] * w.raw[k]);  // binv[k][c]
+    }
+  }
+}
+
 // For pair p: the gradient of ct[p] * e_p with respect to both rows, the
 // scale rows and (accumulated into sg) the 19 scalars, evaluated in S. With
 // S = Dual1 every input carries its entry of the direction (cgi, cgj, cscl,
@@ -571,12 +657,7 @@ __device__ __forceinline__ void pair_grad(
   constexpr int NS = L::NS;
   const size_t row = static_cast<size_t>(p) * F;
   if (!(scl[C + p] > 0.5f)) {
-    for (int k = 0; k < F; ++k) {
-      dgi[row + k] = 0.f;
-      dgj[row + k] = 0.f;
-    }
-    for (int r = 0; r < L::NSCL; ++r) dscl[r * C + p] = 0.f;
-    if (dct != nullptr) dct[p] = 0.f;
+    zero_pair<L>(p, C, dgi + row, dgj + row, dscl, dct);
     return;
   }
   S a[F], b[F], box[9], binv[9];
@@ -631,26 +712,407 @@ __device__ __forceinline__ void pair_grad(
       }
     }
   }
-  // hand chain rule of the wrap: d = s' box, s' = s - floor(s + 1/2),
-  // s = raw binv (floor has zero derivative); in S, so that K3 keeps the
-  // position x box, position x box-inverse and box x box-inverse terms
-  S gs[3];  // dE/ds'
-#pragma unroll
-  for (int c = 0; c < 3; ++c) gs[c] = box[3 * c] * gd[0] + box[3 * c + 1] * gd[1] + box[3 * c + 2] * gd[2];
-#pragma unroll
-  for (int m = 0; m < 3; ++m) {
-    const S g = binv[3 * m] * gs[0] + binv[3 * m + 1] * gs[1] + binv[3 * m + 2] * gs[2];
-    dgi[row + m] = part(g);
-    dgj[row + m] = -part(g);
+  wrap_grad(w, box, binv, gd, dgi + row, dgj + row, sg);
+  dscl[C + p] = 0.f;  // the mask row
+}
+
+// ---------------------------------------------------------------------------
+// K2's gradient body: mixed mode
+// ---------------------------------------------------------------------------
+
+// The transpose of rotate_harm's linear map q -> out at a fixed frame f:
+// the adjoint g of out -> the adjoint of q. Written out, since the
+// truncated kRt3 makes the map only nearly orthogonal (its inverse is not
+// its transpose). For l = 2, T' = F T F^T: the adjoint of the symmetric T
+// is F^T G F with G the symmetric adjoint of T' (off the diagonal, half of
+// the adjoint of the one entry rotate_harm computes), and each off-diagonal
+// entry of T appears twice in T.
+template <class T, int LMAX>
+__device__ __forceinline__ void rotate_harm_t(const T* g, const T* f, T* out) {
+  out[0] = g[0];
+  if constexpr (LMAX >= 1) {
+    out[2] = f[0] * g[2] + f[3] * g[3] + f[6] * g[1];  // cx = q[2]
+    out[3] = f[1] * g[2] + f[4] * g[3] + f[7] * g[1];  // cy = q[3]
+    out[1] = f[2] * g[2] + f[5] * g[3] + f[8] * g[1];  // cz = q[1]
   }
+  if constexpr (LMAX >= 2) {
+    const float h = kRt3 / 2.0f;
+    // G, the symmetric adjoint of T'
+    const T gzz = g[4];
+    const T gxz = (0.5f * kInvRt3x2) * g[5];
+    const T gyz = (0.5f * kInvRt3x2) * g[6];
+    const T gxx = g[7] / kRt3;
+    const T gyy = -gxx;
+    const T gxy = (0.5f * kInvRt3x2) * g[8];
+    // W = G F (rows a of G, columns d of F)
+    T w[9];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      sg[1 + 3 * c + k] += part(gd[k] * w.s[c]);     // box[c][k]
-      sg[10 + 3 * k + c] += part(gs[c] * w.raw[k]);  // binv[k][c]
+    for (int d = 0; d < 3; ++d) {
+      w[d] = gxx * f[d] + gxy * f[3 + d] + gxz * f[6 + d];
+      w[3 + d] = gxy * f[d] + gyy * f[3 + d] + gyz * f[6 + d];
+      w[6 + d] = gxz * f[d] + gyz * f[3 + d] + gzz * f[6 + d];
     }
+    // M = F^T W: the adjoint of the symmetric T, M[c][d] = sum_a F[a][c] W[a][d]
+    const T mxx = f[0] * w[0] + f[3] * w[3] + f[6] * w[6];
+    const T myy = f[1] * w[1] + f[4] * w[4] + f[7] * w[7];
+    const T mzz = f[2] * w[2] + f[5] * w[5] + f[8] * w[8];
+    const T mxy = f[0] * w[1] + f[3] * w[4] + f[6] * w[7];
+    const T mxz = f[0] * w[2] + f[3] * w[5] + f[6] * w[8];
+    const T myz = f[1] * w[2] + f[4] * w[5] + f[7] * w[8];
+    // back through txx = -q4/2 + h q7, tyy = -q4/2 - h q7, tzz = q4,
+    // txy = h q8, txz = h q5, tyz = h q6
+    out[4] = mzz - 0.5f * (mxx + myy);
+    out[7] = h * (mxx - myy);
+    out[8] = (2.0f * h) * mxy;
+    out[5] = (2.0f * h) * mxz;
+    out[6] = (2.0f * h) * myz;
   }
+}
+
+// The transpose of rotate_dipole's map at a fixed frame f
+template <class T>
+__device__ __forceinline__ void rotate_dipole_t(const T* g, const T* f, T* out) {
+  out[1] = f[0] * g[1] + f[3] * g[2] + f[6] * g[0];  // cx = u[1]
+  out[2] = f[1] * g[1] + f[4] * g[2] + f[7] * g[0];  // cy = u[2]
+  out[0] = f[2] * g[1] + f[5] * g[2] + f[8] * g[0];  // cz = u[0]
+}
+
+// The reverse of energy_perm: its adjoints with respect to qi, qj (gqi =
+// T^T qj, gqj = T qi for e = qj^T T qi) and each coefficient (its bracket)
+template <class T, int LMAX>
+__device__ __forceinline__ void perm_adjoint(const T* qi, const T* qj, const PermCoef<T>& c,
+                                             T* gqi, T* gqj, PermCoef<T>& g) {
+  gqi[0] = c.cc * qj[0];
+  gqj[0] = c.cc * qi[0];
+  g.cc = qj[0] * qi[0];
+  if constexpr (LMAX >= 1) {
+    gqi[0] = gqi[0] + c.cd * qj[1];
+    gqi[1] = c.dd0 * qj[1] - c.cd * qj[0];
+    gqi[2] = c.dd1 * qj[2];
+    gqi[3] = c.dd1 * qj[3];
+    gqj[0] = gqj[0] - c.cd * qi[1];
+    gqj[1] = c.cd * qi[0] + c.dd0 * qi[1];
+    gqj[2] = c.dd1 * qi[2];
+    gqj[3] = c.dd1 * qi[3];
+    g.cd = qj[1] * qi[0] - qj[0] * qi[1];
+    g.dd0 = qj[1] * qi[1];
+    g.dd1 = qj[2] * qi[2] + qj[3] * qi[3];
+  }
+  if constexpr (LMAX >= 2) {
+    gqi[0] = gqi[0] + c.cq * qj[4];
+    gqi[1] = gqi[1] - c.dq0 * qj[4];
+    gqi[2] = gqi[2] - c.dq1 * qj[5];
+    gqi[3] = gqi[3] - c.dq1 * qj[6];
+    gqi[4] = c.cq * qj[0] + c.dq0 * qj[1] + c.qq0 * qj[4];
+    gqi[5] = c.dq1 * qj[2] + c.qq1 * qj[5];
+    gqi[6] = c.dq1 * qj[3] + c.qq1 * qj[6];
+    gqi[7] = c.qq2 * qj[7];
+    gqi[8] = c.qq2 * qj[8];
+    gqj[0] = gqj[0] + c.cq * qi[4];
+    gqj[1] = gqj[1] + c.dq0 * qi[4];
+    gqj[2] = gqj[2] + c.dq1 * qi[5];
+    gqj[3] = gqj[3] + c.dq1 * qi[6];
+    gqj[4] = c.cq * qi[0] - c.dq0 * qi[1] + c.qq0 * qi[4];
+    gqj[5] = c.qq1 * qi[5] - c.dq1 * qi[2];
+    gqj[6] = c.qq1 * qi[6] - c.dq1 * qi[3];
+    gqj[7] = c.qq2 * qi[7];
+    gqj[8] = c.qq2 * qi[8];
+    g.cq = qj[0] * qi[4] + qj[4] * qi[0];
+    g.dq0 = qj[1] * qi[4] - qj[4] * qi[1];
+    g.dq1 = qj[2] * qi[5] - qj[5] * qi[2] + qj[3] * qi[6] - qj[6] * qi[3];
+    g.qq0 = qj[4] * qi[4];
+    g.qq1 = qj[5] * qi[5] + qj[6] * qi[6];
+    g.qq2 = qj[7] * qi[7] + qj[8] * qi[8];
+  }
+}
+
+// The reverse of energy_induced: adds its adjoints with respect to qi, qj to
+// gqi, gqj; sets those of ui, uj and of each coefficient
+template <class T, int LMAX>
+__device__ __forceinline__ void induced_adjoint(const T* qi, const T* qj, const T* ui,
+                                                const T* uj, const IndCoef<T>& c, T* gqi,
+                                                T* gqj, T* gui, T* guj, IndCoef<T>& g) {
+  // e = e_ju / 2 + e_iu / 2 + e_uu
+  gui[0] = (-0.5f) * c.cud * qj[0] + c.udud0 * uj[0];
+  gui[1] = c.udud1 * uj[1];
+  gui[2] = c.udud1 * uj[2];
+  guj[0] = 0.5f * c.cud * qi[0] + c.udud0 * ui[0];
+  guj[1] = c.udud1 * ui[1];
+  guj[2] = c.udud1 * ui[2];
+  gqj[0] = gqj[0] - 0.5f * c.cud * ui[0];
+  gqi[0] = gqi[0] + 0.5f * c.cud * uj[0];
+  g.cud = 0.5f * (qi[0] * uj[0] - qj[0] * ui[0]);
+  g.udud0 = uj[0] * ui[0];
+  g.udud1 = uj[1] * ui[1] + uj[2] * ui[2];
+  if constexpr (LMAX >= 1) {
+    gui[0] = gui[0] + 0.5f * c.dud0 * qj[1];
+    gui[1] = gui[1] + 0.5f * c.dud1 * qj[2];
+    gui[2] = gui[2] + 0.5f * c.dud1 * qj[3];
+    guj[0] = guj[0] + 0.5f * c.dud0 * qi[1];
+    guj[1] = guj[1] + 0.5f * c.dud1 * qi[2];
+    guj[2] = guj[2] + 0.5f * c.dud1 * qi[3];
+    gqj[1] = gqj[1] + 0.5f * c.dud0 * ui[0];
+    gqj[2] = gqj[2] + 0.5f * c.dud1 * ui[1];
+    gqj[3] = gqj[3] + 0.5f * c.dud1 * ui[2];
+    gqi[1] = gqi[1] + 0.5f * c.dud0 * uj[0];
+    gqi[2] = gqi[2] + 0.5f * c.dud1 * uj[1];
+    gqi[3] = gqi[3] + 0.5f * c.dud1 * uj[2];
+    g.dud0 = 0.5f * (qj[1] * ui[0] + qi[1] * uj[0]);
+    g.dud1 = 0.5f * (qj[2] * ui[1] + qj[3] * ui[2] + qi[2] * uj[1] + qi[3] * uj[2]);
+  }
+  if constexpr (LMAX >= 2) {
+    gui[0] = gui[0] - 0.5f * c.udq0 * qj[4];
+    gui[1] = gui[1] - 0.5f * c.udq1 * qj[5];
+    gui[2] = gui[2] - 0.5f * c.udq1 * qj[6];
+    guj[0] = guj[0] + 0.5f * c.udq0 * qi[4];
+    guj[1] = guj[1] + 0.5f * c.udq1 * qi[5];
+    guj[2] = guj[2] + 0.5f * c.udq1 * qi[6];
+    gqj[4] = gqj[4] - 0.5f * c.udq0 * ui[0];
+    gqj[5] = gqj[5] - 0.5f * c.udq1 * ui[1];
+    gqj[6] = gqj[6] - 0.5f * c.udq1 * ui[2];
+    gqi[4] = gqi[4] + 0.5f * c.udq0 * uj[0];
+    gqi[5] = gqi[5] + 0.5f * c.udq1 * uj[1];
+    gqi[6] = gqi[6] + 0.5f * c.udq1 * uj[2];
+    g.udq0 = 0.5f * (qi[4] * uj[0] - qj[4] * ui[0]);
+    g.udq1 = 0.5f * (qi[5] * uj[1] + qi[6] * uj[2] - qj[5] * ui[1] - qj[6] * ui[2]);
+  }
+}
+
+// sum_k g_k c_k over the coefficients of LMAX: a pair energy's coefficient
+// part, with the brackets g held fixed (e is linear in the coefficients)
+template <class T, class D, int LMAX>
+__device__ __forceinline__ D perm_contract(const PermCoef<T>& g, const PermCoef<D>& c) {
+  D e = g.cc * c.cc;
+  if constexpr (LMAX >= 1) e = e + g.cd * c.cd + g.dd0 * c.dd0 + g.dd1 * c.dd1;
+  if constexpr (LMAX >= 2)
+    e = e + g.cq * c.cq + g.dq0 * c.dq0 + g.dq1 * c.dq1 + g.qq0 * c.qq0 + g.qq1 * c.qq1 +
+        g.qq2 * c.qq2;
+  return e;
+}
+
+template <class T, class D, int LMAX>
+__device__ __forceinline__ D induced_contract(const IndCoef<T>& g, const IndCoef<D>& c) {
+  D e = g.cud * c.cud + g.udud0 * c.udud0 + g.udud1 * c.udud1;
+  if constexpr (LMAX >= 1) e = e + g.dud0 * c.dud0 + g.dud1 * c.dud1;
+  if constexpr (LMAX >= 2) e = e + g.udq0 * c.udq0 + g.udq1 * c.udq1;
+  return e;
+}
+
+// The gradient of one unmasked pair's energy e with respect to its wrapped
+// displacement d (gd), both feature rows (gfi, gfj), the differentiable
+// scale rows (gs) and kappa (gk), and e itself; the inputs as pair_energy
+// takes them. Each sweep goes in the direction that has few inputs:
+//   1. the forward in S, its intermediates kept: r, the frame, the rotated
+//      harmonics and dipoles, the coefficients;
+//   2. reverse by hand through the bilinear contractions (perm_adjoint,
+//      induced_adjoint, the uu projection): the adjoints of the rotated
+//      values and of the coefficients;
+//   3. the features' gradients through the transposes of the rotations;
+//   4. forward mode over the narrow inputs, from the same templated source
+//      as the energy: the coefficient functions over their scalar inputs
+//      (r, kappa, the scale row, and for the Thole terms t_i, t_j, pol_i,
+//      pol_j: 3 and 7 tangents), contracted with the coefficients' adjoints;
+//      then the frame and the rotations over the 3 components of d,
+//      contracted with the rotated values' adjoints, and r with dE/dr.
+// Every branch of the forward (the degenerate seed, the frame guard, the
+// damping floor, the sigmoid and Thole clips, the exp_damping cut) runs in
+// the same source in step 4, so each takes autograd's side of it.
+template <class S, int KIND, int LMAX>
+__device__ __forceinline__ void pair_energy_grad(const S* d, bool degenerate, const S* fi,
+                                                 const S* fj, const S* s, const S& kappa,
+                                                 S* gd, S* gfi, S* gfj, S* gs, S& gk, S& e) {
+  using D3 = Dual<3, S>;
+  using D7 = Dual<7, S>;
+  const S r = dsqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+  const S rinv = 1.0f / r;
+  D3 dd[3];  // d over itself, for the last sweep
+#pragma unroll
+  for (int m = 0; m < 3; ++m) dd[m] = seed<3>(d[m], m);
+  S gr;
+  if constexpr (KIND == kUU) {
+    // features: u_harm (z, x, y), pol, thole; radial projection, no frame
+    const S ui_z = (fi[1] * d[0] + fi[2] * d[1] + fi[0] * d[2]) * rinv;
+    const S uj_z = (fj[1] * d[0] + fj[2] * d[1] + fj[0] * d[2]) * rinv;
+    const S ui_dot_uj = fi[1] * fj[1] + fi[2] * fj[2] + fi[0] * fj[0];
+    const S dmp = damping_width(fi[3], fj[3]);
+    S m0, m1;
+    uu_coefficients(r, fi[4], fj[4], dmp, s[0], kappa, m0, m1);
+    // e = m0 (uj_z ui_z) + m1 (ui.uj - uj_z ui_z)
+    const S g_uiz = (m0 - m1) * uj_z, g_ujz = (m0 - m1) * ui_z;
+    const S gm0 = uj_z * ui_z, gm1 = ui_dot_uj - uj_z * ui_z;
+    gfi[1] = g_uiz * d[0] * rinv + m1 * fj[1];
+    gfi[2] = g_uiz * d[1] * rinv + m1 * fj[2];
+    gfi[0] = g_uiz * d[2] * rinv + m1 * fj[0];
+    gfj[1] = g_ujz * d[0] * rinv + m1 * fi[1];
+    gfj[2] = g_ujz * d[1] * rinv + m1 * fi[2];
+    gfj[0] = g_ujz * d[2] * rinv + m1 * fi[0];
+    {
+      const D7 r7 = seed<7>(r, 0), k7 = seed<7>(kappa, 1), p7 = seed<7>(s[0], 2);
+      const D7 dmp7 = damping_width(seed<7>(fi[3], 5), seed<7>(fj[3], 6));
+      D7 m07, m17;
+      uu_coefficients(r7, seed<7>(fi[4], 3), seed<7>(fj[4], 4), dmp7, p7, k7, m07, m17);
+      const D7 eu = gm0 * m07 + gm1 * m17;
+      e = eu.v;
+      gr = eu.d[0];
+      gk = eu.d[1];
+      gs[0] = eu.d[2];
+      gfi[4] = eu.d[3];
+      gfj[4] = eu.d[4];
+      gfi[3] = eu.d[5];
+      gfj[3] = eu.d[6];
+    }
+    const D3 r3 = dsqrt(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]);
+    const D3 rinv3 = 1.0f / r3;
+    const D3 ui3 = (fi[1] * dd[0] + fi[2] * dd[1] + fi[0] * dd[2]) * rinv3;
+    const D3 uj3 = (fj[1] * dd[0] + fj[2] * dd[1] + fj[0] * dd[2]) * rinv3;
+    const D3 acc = g_uiz * ui3 + g_ujz * uj3 + gr * r3;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) gd[m] = acc.d[m];
+  } else {
+    constexpr int NH = Layout<KIND, LMAX>::NH;
+    // 1. the forward
+    S f[9];
+    qi_frame(d[0], d[1], d[2], rinv, degenerate, f);
+    S qi[NH], qj[NH];
+    rotate_harm<S, LMAX>(fi, f, qi);
+    rotate_harm<S, LMAX>(fj, f, qj);
+    const S kr = kappa * r;
+    const S x = 2.0f * dexp(-(kr * kr)) / kSqrtPi;
+    PermCoef<S> pc;
+    perm_coefficients<S, LMAX>(r, kr, x, s[0], pc);
+    // 2. reverse through the contractions
+    S gqi[NH], gqj[NH];
+    PermCoef<S> gpc;
+    perm_adjoint<S, LMAX>(qi, qj, pc, gqi, gqj, gpc);
+    S gui[3], guj[3];
+    IndCoef<S> gic;
+    if constexpr (KIND == kPol) {
+      S ui[3], uj[3];
+      rotate_dipole(fi + NH, f, ui);
+      rotate_dipole(fj + NH, f, uj);
+      const S dmp = damping_width(fi[NH + 3], fj[NH + 3]);
+      IndCoef<S> ic;
+      induced_coefficients<S, LMAX>(r, fi[NH + 4], fj[NH + 4], dmp, s[1], kappa, ic);
+      induced_adjoint<S, LMAX>(qi, qj, ui, uj, ic, gqi, gqj, gui, guj, gic);
+      // 3. the dipoles' gradients
+      rotate_dipole_t(gui, f, gfi + NH);
+      rotate_dipole_t(guj, f, gfj + NH);
+    }
+    // 3. the harmonics' gradients
+    rotate_harm_t<S, LMAX>(gqi, f, gfi);
+    rotate_harm_t<S, LMAX>(gqj, f, gfj);
+    // 4. the coefficients over (r, kappa, mscale) ...
+    {
+      const D3 k3 = seed<3>(kappa, 1), m3 = seed<3>(s[0], 2);
+      const D3 rr = seed<3>(r, 0);
+      const D3 kr3 = k3 * rr;
+      const D3 x3 = 2.0f * dexp(-(kr3 * kr3)) / kSqrtPi;
+      PermCoef<D3> c3;
+      perm_coefficients<D3, LMAX>(rr, kr3, x3, m3, c3);
+      const D3 ep = perm_contract<S, D3, LMAX>(gpc, c3);
+      e = ep.v;
+      gr = ep.d[0];
+      gk = ep.d[1];
+      gs[0] = ep.d[2];
+    }
+    // ... and over (r, kappa, pscale, t_i, t_j, pol_i, pol_j)
+    if constexpr (KIND == kPol) {
+      const D7 r7 = seed<7>(r, 0), k7 = seed<7>(kappa, 1), p7 = seed<7>(s[1], 2);
+      const D7 dmp7 = damping_width(seed<7>(fi[NH + 3], 5), seed<7>(fj[NH + 3], 6));
+      IndCoef<D7> c7;
+      induced_coefficients<D7, LMAX>(r7, seed<7>(fi[NH + 4], 3), seed<7>(fj[NH + 4], 4), dmp7,
+                                     p7, k7, c7);
+      const D7 ei = induced_contract<S, D7, LMAX>(gic, c7);
+      e = e + ei.v;
+      gr = gr + ei.d[0];
+      gk = gk + ei.d[1];
+      gs[1] = ei.d[2];
+      gfi[NH + 4] = ei.d[3];
+      gfj[NH + 4] = ei.d[4];
+      gfi[NH + 3] = ei.d[5];
+      gfj[NH + 3] = ei.d[6];
+    }
+    // 4. the frame and the rotations over d
+    const D3 r3 = dsqrt(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]);
+    const D3 rinv3 = 1.0f / r3;
+    D3 f3[9];
+    qi_frame(dd[0], dd[1], dd[2], rinv3, degenerate, f3);
+    D3 acc = gr * r3;
+    D3 q3[NH];
+    rotate_harm<D3, LMAX, S>(fi, f3, q3);
+#pragma unroll
+    for (int k = 0; k < NH; ++k) acc = acc + gqi[k] * q3[k];
+    rotate_harm<D3, LMAX, S>(fj, f3, q3);
+#pragma unroll
+    for (int k = 0; k < NH; ++k) acc = acc + gqj[k] * q3[k];
+    if constexpr (KIND == kPol) {
+      D3 u3[3];
+      rotate_dipole<D3, S>(fi + NH, f3, u3);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc = acc + gui[k] * u3[k];
+      rotate_dipole<D3, S>(fj + NH, f3, u3);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc = acc + guj[k] * u3[k];
+    }
+#pragma unroll
+    for (int m = 0; m < 3; ++m) gd[m] = acc.d[m];
+  }
+}
+
+// K2's body (S = float): the outputs of pair_grad, from the mixed-mode
+// gradient pair_energy_grad; written over S as pair_grad is, so that S =
+// Dual1 gives the same outputs' derivatives along a direction. ri, rj: the
+// pair's two input rows; ci, cj: their direction rows (S = Dual1, else
+// unread); oi, oj: its two output rows (K2 stages them in shared memory).
+template <int KIND, int LMAX, class S>
+__device__ __forceinline__ void pair_grad_mixed(
+    int p, int C, const float* __restrict__ ri, const float* __restrict__ rj,
+    const float* __restrict__ scl, const float* __restrict__ scal,
+    const float* __restrict__ ct, const float* __restrict__ ci,
+    const float* __restrict__ cj, const float* __restrict__ cscl,
+    const float* __restrict__ cscal, float* __restrict__ oi, float* __restrict__ oj,
+    float* __restrict__ dscl, float* __restrict__ dct, float* sg) {
+  using L = Layout<KIND, LMAX>;
+  constexpr int F = L::F;
+  constexpr int NF = L::NF;
+  constexpr int NS = L::NS;
+  if (!(scl[C + p] > 0.5f)) {
+    zero_pair<L>(p, C, oi, oj, dscl, dct);
+    return;
+  }
+  S a[F], b[F], box[9], binv[9];
+#pragma unroll
+  for (int k = 0; k < F; ++k) {
+    a[k] = lift<S>(ri[k], ci, k);
+    b[k] = lift<S>(rj[k], cj, k);
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    box[k] = lift<S>(scal[1 + k], cscal, 1 + k);
+    binv[k] = lift<S>(scal[10 + k], cscal, 10 + k);
+  }
+  const Wrapped<S> w = wrap(a, b, box, binv);
+  const bool degenerate = (val(a[1]) == val(b[1])) && (val(a[2]) == val(b[2]));
+  const float ctp = ct[p];
+  S sv[NS];
+  sv[0] = lift<S>(scl[p], cscl, p);
+  if constexpr (NS > 1) sv[1] = lift<S>(scl[2 * C + p], cscl, 2 * C + p);
+  const S kappa = lift<S>(scal[0], cscal, 0);
+  S gd[3], gfi[NF], gfj[NF], gs[NS], gk, e;
+  pair_energy_grad<S, KIND, LMAX>(w.d, degenerate, a + 3, b + 3, sv, kappa, gd, gfi, gfj, gs,
+                                  gk, e);
+  if (dct != nullptr) dct[p] = part(e);
+#pragma unroll
+  for (int m = 0; m < NF; ++m) {
+    oi[3 + m] = part(ctp * gfi[m]);
+    oj[3 + m] = part(ctp * gfj[m]);
+  }
+#pragma unroll
+  for (int m = 0; m < NS; ++m) dscl[scale_row(m) * C + p] = part(ctp * gs[m]);
+  sg[0] += part(ctp * gk);  // kappa
+#pragma unroll
+  for (int m = 0; m < 3; ++m) gd[m] = ctp * gd[m];
+  wrap_grad(w, box, binv, gd, oi, oj, sg);
   dscl[C + p] = 0.f;  // the mask row
 }
 

@@ -6,8 +6,9 @@
 // returns d_x = ct H_e(x) c for both rows and the scale rows, d_ct = J_e(x) c,
 // and the per-block sums of d_x for the 19 scalars (kappa, box, box inverse).
 //
-// Design: forward mode over K2. pair_grad (pair_energy.cuh) is K2's body
-// evaluated in Dual1 arithmetic: every input of the pair carries its entry
+// Design: forward mode over K2's function. pair_grad (pair_energy.cuh), the
+// forward-mode gradient body K2 ran before its mixed-mode one, is evaluated
+// in Dual1 arithmetic: every input of the pair carries its entry
 // of c as a tangent (the wrap's inputs too: raw = a - b gets cgi - cgj, box
 // and box inverse get cscal), so each gradient entry comes out with its
 // derivative along c, which is the HVP entry, and the energy with J c. The
@@ -17,8 +18,8 @@
 // passes of Dual<kHvpTangents, Dual1>.
 //
 // Bound on the card: arithmetic and registers. The nested dual doubles every
-// value of K2's passes, so K3 takes 2 tangents a pass (K2: 4) to hold the
-// register footprint, at twice the passes; the dual arrays spill to local
+// value of pair_grad's passes, so K3 takes 2 tangents a pass to hold the
+// register footprint; the dual arrays spill to local
 // memory (L1-resident). A pair reads 4F+2 n_scl+2 floats and writes
 // 2F+n_scl+1.
 //

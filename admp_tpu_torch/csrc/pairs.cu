@@ -1,20 +1,29 @@
 // Fused real-space pair kernels of admp_tpu_torch, for sm_90a.
 //
 // K1 pair_fwd_kernel replaces admp_tpu/ops/pallas/pairs.py _make_fwd_kernel
-// (:330); K2 pair_bwd_kernel replaces _make_bwd_kernel (:343). One thread per
-// pair. Both run the per-pair energy of pair_energy.cuh: `float` in the
-// forward, Dual<kTangents> (forward-mode dual numbers) in the backward,
-// which re-runs it in ceil(NV / kTangents) passes over the pair's NV
-// independent inputs. The minimum-image wrap is chain-ruled by hand: floor()
-// has zero derivative, so the position gradient is (binv . box)-mapped dE/dd
-// and the box / box-inverse gradients follow from the fractional coordinates.
+// (:330); K2 pair_bwd_kernel replaces _make_bwd_kernel (:343), which takes
+// jax.grad of the pair energy inside the kernel body (reverse mode). One
+// thread per pair. K1 runs the per-pair energy of pair_energy.cuh in
+// `float`. K2 runs its mixed-mode gradient (pair_energy_grad): one float
+// forward, a hand reverse through the bilinear contractions and the
+// transposed rotations, and forward mode only over the narrow inputs (the
+// 3 components of the displacement through the frame and the rotations;
+// the coefficient functions' 3 or 7 scalar inputs), from the same templated
+// source as the energy. Its first version ran the whole forward in
+// Dual<4> over all ~15-34 inputs of a pair, 9 passes for 'pol' lmax 2: ~45x
+// K1's work. The minimum-image wrap is chain-ruled by hand: floor() has zero
+// derivative, so the position gradient is (binv . box)-mapped dE/dd and the
+// box / box-inverse gradients follow from the fractional coordinates.
 //
-// Bound on the card: arithmetic and registers, not bytes. A pair reads
-// 2F+3 floats and writes one (forward) or 2F+n_scl (backward); the dual
-// passes multiply the forward arithmetic by ~(kTangents+1) * passes and spill
-// the dual arrays to local memory (L1-resident). The scalar gradients are
-// reduced per block in a fixed order (warp shuffles, then shared memory) into
-// an (n_blocks, 19) buffer that the wrapper sums: deterministic, no atomics.
+// Bound on the card: arithmetic, registers and latency, not bytes. A pair
+// reads 2F+3 floats and writes one (forward) or 2F+n_scl (backward). K2
+// keeps its intermediates in registers (168-250 unbounded at lmax 2), so
+// its launch bounds trade a few hundred bytes of L1-resident spills for
+// more blocks per SM (bwd_min_blocks), and it stages its two output rows
+// per pair in shared memory, so that a block stores them coalesced. The
+// scalar gradients are reduced per block in a fixed order (warp shuffles,
+// then shared memory) into an (n_blocks, 19) buffer that the wrapper sums:
+// deterministic, no atomics.
 //
 // C interface (loaded with ctypes; each entry returns cudaGetLastError(), or
 // -1 for an unsupported (kind, lmax)):
@@ -28,8 +37,6 @@
 #include "pair_energy.cuh"
 
 namespace {
-
-constexpr int kTangents = 4;
 
 template <int F>
 __device__ __forceinline__ void load_row(const float* __restrict__ g, int p, float* out) {
@@ -61,20 +68,48 @@ pair_fwd_kernel(const float* __restrict__ gi, const float* __restrict__ gj,
                                         scal[0]);
 }
 
+// K2's blocks per SM for the register allocator: 'pol' lmax 2 takes 250
+// registers unbounded, 2 blocks per SM, and 50,176 pairs then need two
+// waves; at 3 blocks (168 registers, ~200 bytes of spills) they fit one,
+// 0.0153 ms of device time against 0.0227 (4 blocks: 0.0189). 'perm' lmax 2
+// (168 registers unbounded) runs best at 4 (128 registers, ~150 bytes of
+// spills): 0.199 against 0.224 ms at 98k. H100, chip_smoke.py --kernels
+// (PERF.md, Findings).
+__host__ __device__ constexpr int bwd_min_blocks(int kind, int lmax) {
+  return kind == kPerm && lmax == 2 ? 4 : 3;
+}
+
+// K2: one thread per pair; each thread's two output rows are staged in
+// shared memory and the block stores its rows as two contiguous runs
+// (coalesced), where a thread's own row stores would put 32 rows under each
+// store of a warp
 template <int KIND, int LMAX>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, bwd_min_blocks(KIND, LMAX))
 pair_bwd_kernel(const float* __restrict__ gi, const float* __restrict__ gj,
                 const float* __restrict__ scl, const float* __restrict__ scal,
                 const float* __restrict__ ct, float* __restrict__ dgi,
                 float* __restrict__ dgj, float* __restrict__ dscl,
                 float* __restrict__ dscal_blocks, int C) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int F = Layout<KIND, LMAX>::F;
+  __shared__ float s_out[2][kBlock * F];
+  const int p0 = blockIdx.x * kBlock;
+  const int p = p0 + threadIdx.x;
   float sg[kNScal];
 #pragma unroll
   for (int k = 0; k < kNScal; ++k) sg[k] = 0.f;
-  if (p < C)
-    pair_grad<KIND, LMAX, float, kTangents>(p, C, gi, gj, scl, scal, ct, nullptr, nullptr,
-                                            nullptr, nullptr, dgi, dgj, dscl, nullptr, sg);
+  if (p < C) {
+    const size_t row = static_cast<size_t>(p) * F;
+    pair_grad_mixed<KIND, LMAX, float>(p, C, gi + row, gj + row, scl, scal, ct, nullptr,
+                                       nullptr, nullptr, nullptr, s_out[0] + threadIdx.x * F,
+                                       s_out[1] + threadIdx.x * F, dscl, nullptr, sg);
+  }
+  __syncthreads();
+  const int n = min(kBlock, C - p0) * F;
+  const size_t first = static_cast<size_t>(p0) * F;
+  for (int k = threadIdx.x; k < n; k += kBlock) {
+    dgi[first + k] = s_out[0][k];
+    dgj[first + k] = s_out[1][k];
+  }
   reduce_scalars(sg, dscal_blocks);
 }
 

@@ -7,8 +7,7 @@
 // 'auto' takes once the 1-D slab accumulator no longer fits VMEM (the
 // 98,304-atom box at 256^3 and 320^3). gather_tiled_kernel replaces
 // _make_gather_kernel_mxu (:949, reached through _pallas_gather2d_impl :1063
-// with variant="mxu"), K6's function on the same block decomposition from
-// one staged window per atom.
+// with variant="mxu"), K6's function over the same bins.
 //
 // The mesh is cut into core tiles of kT1 x kT2 x kT3 points (x, y, z; the
 // last tile of an axis may be partial). The atoms are binned by the tile of
@@ -46,21 +45,30 @@
 // p + order - 1 - w and, on an axis shorter than the halo'd tile
 // (K < kT + order - 1), also its images K, 2K, ... below it.
 //
-// K7. One block per bin: it stages the cotangent window of its tile plus
-// the halo ((kT1 + order - 1) x (kT2 + order - 1) x (kT3 + order - 1) per
-// channel, periodic wrap by index) in shared memory with coalesced loads;
-// each (atom, stencil point) thread reads its value there and writes it to
-// the atom's row in original order (through the bins' permutation). A pure
-// selection: equal bit for bit to the plain gather. The TPU kernel's one-hot
-// MXU z-contraction existed because Mosaic cannot pick unaligned lanes; a
-// shared-memory read does the pick here, exactly (a TF32 one-hot product
-// would round the cotangents).
+// K7, in bin order. One lane per stencil row (sorted slot s, x, y), as K6
+// (csrc/spread.cu) reads its rows: the slot's base is already wrapped,
+// b = (m_u0 - order/2) mod K, so a row's x and y are b + x, b + y with a
+// remainder only on an axis shorter than the stencil, and its first z is b.
+// A warp reads its 32 rows' consecutive z values and writes 128-byte spans
+// of the output by shuffle, to the row of the slot's atom perm[s]. The slots
+// are in bin order, so the warps of a block read neighbouring mesh rows of
+// one 8 x 8 x 32 tile (the reuse is L1's and L2's); a warp that crosses
+// into the next bin changes nothing, since each slot carries its own base.
+// The warps stride over the rows on a grid that fills the card, and the slot
+// count is offsets[n_tiles], read on the card, so the launch needs no host
+// sync and the C signature stays K5's. A pure selection: equal bit for bit
+// to the plain gather. The TPU kernel staged a window per block and picked
+// its lanes by a one-hot MXU z-contraction because Mosaic cannot pick
+// unaligned lanes; the window stage of this kernel's first version (one
+// block per bin, 13 x 13 x 37 points per channel for ~6 atoms) read ~3x
+// the mesh and took 5-6x its bound (PERF.md).
 //
 // Bytes: K5 reads the stencil values (N C order^3 f32) and writes the whole
 // mesh once; it stages each atom in ~3 blocks ((kT + order - 1)^3 / kT^3 at
-// order 6), mostly from L2. K7 reads each core tile with its halo,
-// (1 + (order-1)/kT)^3 of the mesh (~3x at order 6), and writes N C order^3
-// values. Flat mesh offsets are 64-bit (3 x 320^3 = 98M).
+// order 6), mostly from L2. K7 writes N C order^3 values and reads the mesh
+// points the stencils touch, each stencil row's order values as one run (a
+// run split in two where it wraps at K3). Flat mesh offsets are 64-bit
+// (3 x 320^3 = 98M).
 //
 // C interface (ctypes; each returns cudaGetLastError(), -1 for an
 // unsupported (order, channels), -2 for a tile shape other than the one
@@ -73,7 +81,8 @@
 //     every point written
 //   admp_gather_tiled(base, perm, offsets, mesh, out, n_ch, order, K1, K2,
 //                     K3, T1, T2, T3, stream)
-//     mesh (n_ch, K1, K2, K3) f32 -> out (N, n_ch, order^3) f32 in atom order
+//     mesh (n_ch, K1, K2, K3) f32 -> out (N, n_ch, order^3) f32 in atom order;
+//     of offsets it reads only the last entry, N
 
 #include <cuda_runtime.h>
 
@@ -86,6 +95,7 @@ constexpr int kThreads = kT2 * kT3;        // K5: one thread per (y, z) column
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBins = 27;               // K5: source bins of a tile, <= 3 per axis
 constexpr int kStageBytes = 41472;         // K5: stencil rows staged per chunk
+constexpr int kGatherBlocksPerSM = 2048 / kThreads;  // K7: a full SM of warps
 
 // K5's stage: rows of C order^3 floats; 48 at (6, 1), 16 at (6, 3), 64 at
 // order 4 (54 at (4, 3))
@@ -301,42 +311,55 @@ spread_tiled_kernel(const int* __restrict__ base, const int* __restrict__ perm,
   }
 }
 
+// K7: one lane per stencil row of the sorted slots (row t: slot
+// t / order^2, then x, y), 32 consecutive rows per warp and turn; the warps
+// stride over the rows, and the slot count is offsets[n_tiles], read on the
+// card (no host sync). Lane l takes the turn's row 32w + l: its (x, y) line
+// of the mesh and its first z from the slot's wrapped base (a remainder
+// only where the axis is shorter than the stencil: wrap_up), and its row
+// in the output, in the row of the slot's atom perm[s]. In round j, lane l
+// takes value j 32 + l of the warp's rows from that row's lane by shuffle
+// and copies it in every channel. The shuffled values are 32-bit (three
+// per round; the 64-bit flat offsets are formed after them). A slot's rows
+// are consecutive in its atom's output row, so a round's 32 values go to at
+// most two runs of consecutive floats. Counts: N order^2 rows and
+// N order^2 C rows of output fit int32 below 19M atoms. The launch bounds
+// hold it to 32 registers, 8 blocks and a full SM of warps: unbounded it
+// took 40 registers (6 blocks) and 0.117 ms at 98k on 320^3, bounded 0.082
+// (H100, chip_smoke.py --kernels; PERF.md, Findings). The grid is one wave of
+// such blocks.
 template <int ORDER, int NCH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kGatherBlocksPerSM)
 gather_tiled_kernel(const int* __restrict__ base, const int* __restrict__ perm,
-                    const int* __restrict__ offsets, const float* __restrict__ mesh,
-                    float* __restrict__ out, int k1, int k2, int k3, int nt2, int nt3) {
-  constexpr int kPts = ORDER * ORDER * ORDER;
-  constexpr int kHalo = ORDER - 1;
-  constexpr int R1 = kT1 + kHalo, R2 = kT2 + kHalo, R3 = kT3 + kHalo;
-  constexpr int kWin = R1 * R2 * R3;
-  __shared__ float s_win[kWin];
-
-  const int tile = blockIdx.x;
-  const int lo = offsets[tile], hi = offsets[tile + 1];
-  if (lo == hi) return;
-  const int t3 = tile % nt3, t2 = (tile / nt3) % nt2, t1 = tile / (nt3 * nt2);
-  const int c1 = t1 * kT1, c2 = t2 * kT2, c3 = t3 * kT3;
+                    const int* __restrict__ count, const float* __restrict__ mesh,
+                    float* __restrict__ out, int k1, int k2, int k3) {
+  constexpr int kRows = ORDER * ORDER;  // stencil rows of a slot
+  constexpr int kPts = kRows * ORDER;
+  const int rows = *count * kRows;
+  const int lane = threadIdx.x % 32;
   const long long plane = static_cast<long long>(k1) * k2 * k3;
-  const int n_out = (hi - lo) * kPts;
-
-  for (int ch = 0; ch < NCH; ++ch) {
-    if (ch) __syncthreads();  // the previous channel's reads are done
-    const float* m = mesh + ch * plane;
-    for (int r = threadIdx.x; r < kWin; r += kThreads) {
-      const int r3 = r % R3, r2 = (r / R3) % R2, r1 = r / (R3 * R2);
-      const long long g = (static_cast<long long>(wrap_up(c1 + r1, k1)) * k2 +
-                           wrap_up(c2 + r2, k2)) * k3 + wrap_up(c3 + r3, k3);
-      s_win[r] = m[g];
+  for (int row0 = blockIdx.x * blockDim.x + threadIdx.x - lane; row0 < rows;
+       row0 += gridDim.x * blockDim.x) {  // uniform over the warp
+    const int t = row0 + lane;
+    int line = 0, z0 = 0, dst = 0;  // (x, y) line, first z, output row (x ORDER floats)
+    if (t < rows) {
+      const int s = t / kRows, row = t - s * kRows;
+      const int* b = base + 3 * s;
+      line = wrap_up(b[0] + row / ORDER, k1) * k2 + wrap_up(b[1] + row % ORDER, k2);
+      z0 = b[2];
+      dst = perm[s] * (NCH * kRows) + row;
     }
-    __syncthreads();
-    for (int k = threadIdx.x; k < n_out; k += kThreads) {
-      const int a = lo + k / kPts, pt = k % kPts;
-      const int l1 = base[3 * a] - c1 + pt / (ORDER * ORDER);
-      const int l2 = base[3 * a + 1] - c2 + (pt / ORDER) % ORDER;
-      const int l3 = base[3 * a + 2] - c3 + pt % ORDER;
-      out[(static_cast<long long>(perm[a]) * NCH + ch) * kPts + pt] =
-          s_win[(l1 * R2 + l2) * R3 + l3];
+    const int live = min(rows - row0, 32) * ORDER;  // values per channel
+#pragma unroll
+    for (int j = 0; j < ORDER; ++j) {
+      const int k = j * 32 + lane, src = k / ORDER, c = k - src * ORDER;
+      const long long g = static_cast<long long>(__shfl_sync(0xffffffffu, line, src)) * k3 +
+                          wrap_up(__shfl_sync(0xffffffffu, z0, src) + c, k3);
+      const long long o = static_cast<long long>(__shfl_sync(0xffffffffu, dst, src)) * ORDER + c;
+      if (k < live) {
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) out[o + ch * kPts] = mesh[ch * plane + g];
+      }
     }
   }
 }
@@ -353,12 +376,25 @@ int launch_spread(const int* base, const int* perm, const int* offsets, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7's grid: one wave of blocks over every SM (the warps stride over the
+// rows)
+int gather_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    blocks = (sms > 0 ? sms : 1) * kGatherBlocksPerSM;
+  }
+  return blocks;
+}
+
 template <int ORDER, int NCH>
 int launch_gather(const int* base, const int* perm, const int* offsets, const float* mesh,
                   float* out, int k1, int k2, int k3, cudaStream_t s) {
-  const int nt1 = n_tiles(k1, kT1), nt2 = n_tiles(k2, kT2), nt3 = n_tiles(k3, kT3);
-  gather_tiled_kernel<ORDER, NCH><<<nt1 * nt2 * nt3, kThreads, 0, s>>>(
-      base, perm, offsets, mesh, out, k1, k2, k3, nt2, nt3);
+  const int nt = n_tiles(k1, kT1) * n_tiles(k2, kT2) * n_tiles(k3, kT3);
+  gather_tiled_kernel<ORDER, NCH><<<gather_blocks(), kThreads, 0, s>>>(
+      base, perm, offsets + nt, mesh, out, k1, k2, k3);
   return static_cast<int>(cudaGetLastError());
 }
 

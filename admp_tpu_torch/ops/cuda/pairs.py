@@ -24,17 +24,22 @@ atom table [x, y, z, q_harm (+ u_harm(3), pol, thole)] or, for ``'uu'``,
 [x, y, z, u_harm(3), pol, thole]; ``scl`` rows [mscale, mask(, pscale)] or
 [pscale, mask] for ``'uu'``; ``scal`` (19,) [kappa, box(9), inv(box)(9)].
 
-On the card the kernels are bound by arithmetic, not bytes: one thread per
-pair reads ~2F+3 floats and evaluates a few hundred flops (erfcf, expf, a
-frame and two rotations). The design keeps every intermediate in registers
-and writes only the (C,) energies. The backward runs the same templated
-device function with forward-mode dual numbers of a small tangent width, in
-several passes over the ~15-34 independent inputs of a pair, instead of a
-hand-written reverse adjoint of the rotations and Thole terms: exact
-derivatives from the very source the forward uses, at the price of
-repeating the forward arithmetic once per pass (ROADMAP.md lists a
-reverse-mode kernel as later speed work). K3 runs K2's body once more with
-every value a one-tangent dual along c.
+On the card the kernels are bound by arithmetic, registers and latency, not
+bytes: one thread per pair reads ~2F+3 floats and evaluates a few hundred
+flops (erfcf, expf, a frame and two rotations). The design keeps every
+intermediate in registers and writes only the (C,) energies. The backward
+K2 is mixed mode, as admp_tpu's kernel is reverse mode (``jax.grad`` in its
+body): one float forward, a hand reverse of the bilinear contractions and
+of the rotations (their transposes written out), and forward-mode dual
+numbers only over the narrow inputs, the 3 components of the displacement
+through the frame and the rotations and the coefficient functions' 3 or 7
+scalar inputs, from the same templated source as the forward, so each of
+its branches (the degenerate frame, the damping floor, the Thole clips)
+takes autograd's side. It stages each block's output rows in shared memory
+and stores them coalesced. K3 still runs the forward-mode body that K2 ran
+before (every input seeded, in passes of two tangents), each value a
+one-tangent dual along c; the mixed-mode body also compiles in that
+arithmetic, which is K3's next step (ROADMAP.md).
 
 Autograd: ``PairEnergyFn`` (forward K1) has the backward ``PairBwdFn``
 (forward K2, backward K3), so the pair energies are twice differentiable on

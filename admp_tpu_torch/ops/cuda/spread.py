@@ -40,8 +40,12 @@ accumulate and read per tile over the same bins. K5 is owner-computes: one
 block per core tile stages the atoms whose bases lie in the tile's halo'd
 window, from every source bin in one pass, with asynchronous copies into
 shared memory, and sums them in a fixed order (no atomics, the same mesh on
-every run). ``SpreadTiledFn`` and ``GatherTiledFn`` are each other's
-backward (admp_tpu's ``spread_blocks_2d_multi`` and ``gather_blocks_2d``,
+every run). K7 reads the stencil rows of the sorted slots in bin order, one
+lane per row as K6 reads an atom's, and writes each slot's values to its
+atom's row; it reads the slot count from the offsets on the card. The
+launchers refuse bins made for another order, tile or grid.
+``SpreadTiledFn`` and ``GatherTiledFn`` are each other's backward
+(admp_tpu's ``spread_blocks_2d_multi`` and ``gather_blocks_2d``,
 :1400-1473); on a CPU tensor they take the plain versions.
 """
 
@@ -378,20 +382,44 @@ def gather_tiled_torch(bins: TileBins, mesh, grid_shape, order: int):
     return out
 
 
-def _bins_fit(bins: TileBins, order, dev):
-    """Whether the bins were made for this order and the kernels' tile, with
-    their permutation and offsets int32 on CUDA device ``dev``."""
+def _bins_grid_error(bins: TileBins, grid_shape):
+    """None if the bins' shapes fit a launch on ``grid_shape`` (their tiles
+    per axis, n_tiles + 1 offsets, a permutation as long as the bases), else
+    the message. Shapes and Python ints only: no host sync."""
+    nt = tuple(-(-int(k) // t) for k, t in zip(grid_shape, TILE))
+    if bins.n_tiles != nt:
+        return (f"bins made for {bins.n_tiles} tiles per axis; the grid "
+                f"{tuple(grid_shape)} has {nt}")
+    want = nt[0] * nt[1] * nt[2] + 1
+    if bins.offsets.shape != (want,):
+        return (f"bins: offsets of shape {tuple(bins.offsets.shape)}, "
+                f"expected ({want},)")
+    if bins.perm.shape != bins.base.shape[:1]:
+        return (f"bins: perm of shape {tuple(bins.perm.shape)} beside "
+                f"{bins.base.shape[0]} bases")
+    return None
+
+
+def _bins_fit(bins: TileBins, order, dev, grid_shape):
+    """Whether the bins were made for this order, the kernels' tile and
+    ``grid_shape``, with their permutation and offsets int32 on CUDA device
+    ``dev``."""
     perm, offsets = bins.perm, bins.offsets
     return (bins.order == order and bins.tile == TILE
+            and _bins_grid_error(bins, grid_shape) is None
             and perm.dtype is _I32 and offsets.dtype is _I32
             and perm.get_device() == dev and offsets.get_device() == dev)
 
 
-def _bins_refusal(bins: TileBins, x, name, order, shape_error):
-    """_refusal for a tiled launcher, after the bins' order and tile."""
+def _bins_refusal(bins: TileBins, x, name, order, shape_error, grid_shape):
+    """_refusal for a tiled launcher, after the bins' order and tile, then
+    their fit to the grid."""
     if not (bins.order == order and bins.tile == TILE):
         return ValueError(f"bins of order {bins.order}, tile {bins.tile}; "
                           f"the kernel takes order {order}, tile {TILE}")
+    grid_error = _bins_grid_error(bins, grid_shape)
+    if grid_error:
+        return ValueError(grid_error)
     if shape_error or not _fits(bins.base, x, x.get_device(), order):
         return _refusal(bins.base, x, name, order, shape_error)
     return ValueError("bins: int32 tensors on the mesh's device")
@@ -402,8 +430,9 @@ def launch_spread_tiled(bins: TileBins, q_points, grid_shape, order: int):
     dev = q_points.get_device()
     shape_error = _q_shape_error(q_points, bins.base, grid_shape, order)
     if shape_error or not (_fits(bins.base, q_points, dev, order)
-                           and _bins_fit(bins, order, dev)):
-        raise _bins_refusal(bins, q_points, "q_points", order, shape_error)
+                           and _bins_fit(bins, order, dev, grid_shape)):
+        raise _bins_refusal(bins, q_points, "q_points", order, shape_error,
+                            grid_shape)
     n_ch = q_points.shape[1]
     k1, k2, k3 = (int(k) for k in grid_shape)
     mesh = torch.empty(n_ch, k1, k2, k3, dtype=_F32, device=q_points.device)
@@ -428,8 +457,9 @@ def launch_gather_tiled(bins: TileBins, mesh, grid_shape, order: int):
     dev = mesh.get_device()
     shape_error = _mesh_shape_error(mesh, grid_shape)
     if shape_error or not (_fits(bins.base, mesh, dev, order)
-                           and _bins_fit(bins, order, dev)):
-        raise _bins_refusal(bins, mesh, "mesh", order, shape_error)
+                           and _bins_fit(bins, order, dev, grid_shape)):
+        raise _bins_refusal(bins, mesh, "mesh", order, shape_error,
+                            grid_shape)
     n_ch, k1, k2, k3 = mesh.shape
     n = bins.base.shape[0]
     out = torch.empty(n, n_ch, order ** 3, dtype=_F32, device=mesh.device)

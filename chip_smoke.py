@@ -23,8 +23,8 @@ Phases (any failure exits nonzero; no phase failure is caught):
      field_tol 10, order-6 full-resolution matvec mesh): one cold and 10 warm
      drift steps, launch counts (K3 for pol and uu), the first step against
      the plain path in f32 and f64;
-  3c. parameter gradients dE/dQ_local, dE/dpol, dE/dtholes on the kernels
-     against the plain path in f64;
+  3c. parameter gradients dE/dQ_local, dE/dpol, dE/dtholes, dE/dmScales and
+     dE/dpScales on the kernels against the plain path in f64;
   3d. the trainer: 3 fitting.fit steps of energy matching on the exact-adjoint
      polarizable model (Q_local, pol, tholes) and of energy_force_loss on the
      fixed-multipole model (Q_local), B=2 each, kernel path against plain f32;
@@ -57,10 +57,15 @@ Phases (any failure exits nonzero; no phase failure is caught):
 prints only that last line, for the admp_tpu_torch in DIR (another commit's
 checkout), so that two launchers compare in one run on the card, and
 
-    python3 chip_smoke.py --kernels DIR
+    python3 chip_smoke.py --kernels DIR [DIR ...]
 
-only the device times of K5 and K6 built from this tree's sources and from
-DIR's, on the same inputs in one process.
+only the device times of K2, K5, K6 and K7 built from this tree's sources and
+from each DIR's, on the same inputs in one process, in turns (median of 5), each
+checked first (K6, K7 bit for bit against the plain gather, K5 within 1e-5
+of the other tree's mesh, K2 within 1e-5 relative RMSE of autograd), and
+the registers and spills of each tree's K2 and K7: K2 'pol' at the MD shapes and
+'perm' at 98k, K5 and K7 at 98k on 320^3 and 256^3, K6 at the MD, full FF
+and 98k shapes.
 Phase 2 also holds the three-channel spread and gather (K4, K6 at C=3) on the
 dispersion stencil at orders 4 and 6.
 Each path's launch counts are set to 0 just before it runs and read just
@@ -646,15 +651,16 @@ def adjoint_path(w, record):
     require(df < TOL_ADJ_F, f"exact adjoint forces vs plain f32 {df}")
     require(df64 < TOL_F64, f"exact adjoint forces vs plain f64 {df64}")
 
-    # 3c: dE/d(Q_local, pol, tholes) through get_energy, cold-started
-    names = ("Q_local", "pol", "tholes")
+    # 3c: dE/d(Q_local, pol, tholes, mScales, pScales) through get_energy,
+    # cold-started; the two scales reach K2's dscl rows
+    names = ("Q_local", "pol", "tholes", "mScales", "pScales")
     grads = {}
     for name, f in (("kernel", force), ("plain32", plain32),
                     ("plain64", plain64)):
         dtype = torch.float64 if name == "plain64" else torch.float32
         args = list(pol_args(w, w["positions"], dtype))
-        params = [args[k].clone().requires_grad_(True) for k in (3, 4, 5)]
-        args[3:6] = params
+        params = [args[k].clone().requires_grad_(True) for k in range(3, 8)]
+        args[3:8] = params
         u0 = torch.zeros_like(w["positions"], dtype=dtype)
         energy = f.get_energy(*args, U_init=u0)
         grads[name] = torch.autograd.grad(energy, params)
@@ -1423,26 +1429,73 @@ def launcher_host_us(S, dev, rounds=5, n=1000, parts=False):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def kernels_against(other, dev, card, repeats=5):
-    """Device ms per call of K6 and K5 from this tree's sources and from
-    those of the checkout in ``other`` (built there by its own build.py and
-    loaded beside this tree's: the C interfaces are the same), on the same
-    inputs in one process, the two taken in turn, median of ``repeats``
-    profiles each: K6 at the MD shapes, at the full force field's (4, 3)
-    and at 98k on 320^3 and 256^3; K5 at 98k on 320^3 and 256^3. Logged."""
-    from admp_tpu_torch.ops.cuda import build, spread as S
+def large_pair_inputs(w):
+    """K2's 'perm' tables at the 98k step's first configuration: lmax 2,
+    its sparse exclusions and cell-list pair slots (1,703,936), the
+    fluctuating multipoles in the global frame."""
+    from admp_tpu_torch.models.pme import _pair_indices, _pair_scalars
+    from admp_tpu_torch.ops.exclusions import (
+        as_covalent_map,
+        lookup_topology_distance,
+        scale_for_distance,
+    )
+    from admp_tpu_torch.ops.frames import local_frames_components
+    from admp_tpu_torch.ops.harmonics import rot_local2global_components
 
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+    s = w["sys"]
+    pos, box = w["positions"], w["box"]
+    dev = pos.device
+    i, j, mask = _pair_indices(w["pairs"], pos.shape[0])
+    cov = as_covalent_map(w["sparse"], dev)
+    mscale = scale_for_distance(w["scales"], lookup_topology_distance(cov, i, j))
+    frames = local_frames_components(
+        pos, box, torch.as_tensor(s["axis_types"], device=dev),
+        torch.as_tensor(s["axis_indices"], device=dev))
+    qg = rot_local2global_components(fluctuating_q_local(pos, w["q_cart"]),
+                                     frames, LMAX)
+    packed = torch.cat([pos, qg], dim=1)
+    return (packed.index_select(0, i).contiguous(),
+            packed.index_select(0, j).contiguous(),
+            torch.stack([mscale, mask.float()]).contiguous(),
+            _pair_scalars(0.7296, box).contiguous(), LMAX)
+
+
+def kernels_against(others, dev, card, repeats=5):
+    """Device ms per call of K2, K5, K6 and K7 from this tree's sources and
+    from those of each checkout in ``others`` (built there by its own
+    build.py, all at once, and loaded beside this tree's: the C interfaces
+    are the same), on the same inputs in one process, the trees taken in
+    turn, median of ``repeats`` profiles each, every call checked first: K2
+    'pol' at the MD shapes and 'perm' at 98k (every output within
+    TOL_PAIR_GRAD relative RMSE of autograd of the plain version), K5 at
+    98k on 320^3 and 256^3 (each tree's mesh within TOL_SPREAD of this
+    tree's), K6 at the MD shapes, at the full force field's (4, 3) and at
+    98k on 320^3 and 256^3, K7 at 98k on 320^3 and 256^3 (K6 and K7 bit
+    for bit against the plain gather). Logged, with the registers and
+    spills of every tree's K2 and K7."""
+    from admp_tpu_torch.ops.cuda import build, pairs as PP, spread as S
+
+    names = ("pairs", "spread", "spread_tiled")
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "from admp_tpu_torch.ops.cuda import build as b; "
-            "b.build(('spread', 'spread_tiled')); "
-            "print(b.library_path('spread'), b.library_path('spread_tiled'))")
-    theirs = subprocess.run([sys.executable, "-c", code, other],
-                            capture_output=True, text=True, check=True,
-                            timeout=900).stdout.split()
-    build.build(("spread", "spread_tiled"))
-    libs = {"this tree": [ctypes.PyDLL(str(build.library_path(n)))
-                          for n in ("spread", "spread_tiled")],
-            other: [ctypes.PyDLL(path) for path in theirs]}
+            f"logs = b.build({names!r}); print(json.dumps("
+            f"[[str(b.library_path(n)) for n in {names!r}], logs]))")
+    procs = {d: subprocess.Popen([sys.executable, "-c", code, d],
+                                 stdout=subprocess.PIPE, text=True)
+             for d in others}
+    logs = {"this tree": build.build(names)}
+    libs = {"this tree": {n: ctypes.PyDLL(str(build.library_path(n)))
+                          for n in names}}
+    for d, proc in procs.items():
+        out, _ = proc.communicate(timeout=900)
+        require(proc.returncode == 0, f"the build of {d}")
+        paths, logs[d] = json.loads(out)
+        libs[d] = {n: ctypes.PyDLL(path) for n, path in zip(names, paths)}
+    for name, tree_logs in logs.items():
+        for lib in ("pairs", "spread_tiled"):
+            for line in ptxas_summary(tree_logs.get(lib, "")):
+                if "pair_bwd" in line or "gather_tiled" in line:
+                    log(f"[{card}] {name} {lib}: {line}")
     P = ctypes.c_void_p
     stream = P(S._raw_stream(0))
     rng = np.random.default_rng(15)
@@ -1457,24 +1510,42 @@ def kernels_against(other, dev, card, repeats=5):
     cases = [("K6 MD (6, 1)", m_md, mesh_of((1, *w["grid"])), 6),
              (f"K6 full FF ({DISP_ORDER}, 3)", m_ff,
               mesh_of((3, K_FF, K_FF, K_FF)), DISP_ORDER)]
+    pair_cases = [("K2 MD 'pol'", "pol", pair_inputs(w, "pol"))]
     w98 = build_large(dev)
-    tiled = []
+    tiled, gathers = [], []
     for k in (K98, K98_ALT):
-        m98, q98 = large_stencil(w98, (k,) * 3)
-        cases.append((f"K6 98k {k}^3 (6, 1)", m98, mesh_of((1, k, k, k)), 6))
-        tiled.append((f"K5 98k {k}^3 (6, 1)", S.tile_bins(m98, (k,) * 3),
-                      q98, (k,) * 3))
+        grid = (k,) * 3
+        m98, q98 = large_stencil(w98, grid)
+        mesh = mesh_of((1, *grid))
+        cases.append((f"K6 98k {k}^3 (6, 1)", m98, mesh, 6))
+        bins = S.tile_bins(m98, grid)
+        tiled.append((f"K5 98k {k}^3 (6, 1)", bins, q98, grid))
+        gathers.append((f"K7 98k {k}^3 (6, 1)", m98, bins, mesh))
+    pair_cases.append(("K2 98k 'perm'", "perm", large_pair_inputs(w98)))
 
     def gather(lib, m_u0, mesh, order, out):
-        return lambda: lib[0].admp_gather(
+        return lambda: lib["spread"].admp_gather(
             P(m_u0.data_ptr()), P(mesh.data_ptr()), P(out.data_ptr()),
             m_u0.shape[0], mesh.shape[0], order, *mesh.shape[1:], stream)
 
     def spread_tiled(lib, bins, q, grid, out):
-        return lambda: lib[1].admp_spread_tiled(
+        return lambda: lib["spread_tiled"].admp_spread_tiled(
             P(bins.base.data_ptr()), P(bins.perm.data_ptr()),
             P(bins.offsets.data_ptr()), P(q.data_ptr()), P(out.data_ptr()),
             q.shape[1], 6, *grid, *S.TILE, stream)
+
+    def gather_tiled(lib, bins, mesh, out):
+        return lambda: lib["spread_tiled"].admp_gather_tiled(
+            P(bins.base.data_ptr()), P(bins.perm.data_ptr()),
+            P(bins.offsets.data_ptr()), P(mesh.data_ptr()),
+            P(out.data_ptr()), mesh.shape[0], 6, *mesh.shape[1:], *S.TILE,
+            stream)
+
+    def pair_bwd(lib, tables, ct, kind, outs):
+        g_i, g_j, scl, scal, lmax = tables
+        return lambda: lib["pairs"].admp_pair_bwd(
+            *(P(t.data_ptr()) for t in (g_i, g_j, scl, scal, ct, *outs)),
+            g_i.shape[0], PP.KINDS[kind], lmax, stream)
 
     calls = {}
     for label, m_u0, mesh, order in cases:
@@ -1487,6 +1558,15 @@ def kernels_against(other, dev, card, repeats=5):
             torch.cuda.synchronize()
             require(torch.equal(out, ref), f"{label} of {name}: not the "
                     "plain gather's values")
+    for label, m_u0, bins, mesh in gathers:
+        ref = S.gather_torch(m_u0, mesh, tuple(mesh.shape[1:]), 6)
+        for name, lib in libs.items():
+            out = torch.empty_like(ref)
+            calls[label, name] = gather_tiled(lib, bins, mesh, out)
+            require(calls[label, name]() == 0, f"{label} of {name}: launch")
+            torch.cuda.synchronize()
+            require(torch.equal(out, ref), f"{label} of {name}: not the "
+                    "plain gather's values")
     for label, bins, q, grid in tiled:
         meshes = []
         for name, lib in libs.items():
@@ -1495,8 +1575,33 @@ def kernels_against(other, dev, card, repeats=5):
             require(calls[label, name]() == 0, f"{label} of {name}: launch")
         torch.cuda.synchronize()
         scale = float(meshes[0].abs().max())
-        require(float((meshes[0] - meshes[1]).abs().max())
-                <= TOL_SPREAD * scale, f"{label}: the two meshes differ")
+        require(all(float((m - meshes[0]).abs().max()) <= TOL_SPREAD * scale
+                    for m in meshes), f"{label}: the meshes differ")
+    for label, kind, tables in pair_cases:
+        g_i, g_j, scl, scal, lmax = tables
+        ct = torch.tensor(rng.uniform(0.5, 1.5, g_i.shape[0]), device=dev,
+                          dtype=torch.float32)
+        leaves = [t.clone().requires_grad_(True) for t in tables[:4]]
+        ref = torch.autograd.grad((PP.pair_energies_torch(
+            *leaves, lmax, kind) * ct).sum(), leaves)
+        n_blocks = -(-g_i.shape[0] // 128)  # admp_pair_block_size()
+        rows = [0, 2] if kind == "pol" else [0]
+        for name, lib in libs.items():
+            outs = (torch.empty_like(g_i), torch.empty_like(g_j),
+                    torch.empty_like(scl),
+                    torch.empty(n_blocks, PP.N_SCAL, device=dev))
+            calls[label, name] = pair_bwd(lib, tables, ct, kind, outs)
+            require(calls[label, name]() == 0, f"{label} of {name}: launch")
+            torch.cuda.synchronize()
+            got = (outs[0], outs[1], outs[2][rows], outs[3].sum(dim=0))
+            want = (ref[0], ref[1], ref[2][rows], ref[3])
+            errs = [rel_rmse(a, b) for a, b in zip(got, want)]
+            log(f"[{card}] {label} C={g_i.shape[0]} of {name}: rel RMSE vs "
+                "autograd d_gi, d_gj, d_scl, d_scal " + ", ".join(
+                    f"{e:.3e}" for e in errs))
+            require(all(e < TOL_PAIR_GRAD for e in errs),
+                    f"{label} of {name}: {errs}")
+        del ref, leaves
     times = {key: [] for key in calls}
     for _ in range(repeats):
         for key, fn in calls.items():
@@ -1561,6 +1666,30 @@ def time_kernels(record):
         r["bound_ms"], r["bound_by"] = b_ms, b_by
 
 
+def ptxas_summary(text):
+    """One line per kernel of an nvcc -Xptxas -v log: its name with its
+    template arguments, registers and spill stores / loads (the log's own
+    register and spill lines where no kernel name is found)."""
+    import re
+
+    out, kernel, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for \S*?\d([a-z_]+_kernel)"
+                      r"(I(?:Li\d+E)+E)?", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append(f"{kernel}: {m.group(1)} registers, {spill}")
+            kernel, spill = None, ""
+    return out or [line.strip() for line in text.splitlines()
+                   if "registers" in line or "spill" in line]
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1576,8 +1705,8 @@ def main():
         return 1
     # --launchers DIR: only the launcher host-us line, of the admp_tpu_torch
     # in DIR (another commit's checkout, to compare in one run);
-    # --kernels DIR: only K5's and K6's device times, this tree's beside
-    # DIR's in one process
+    # --kernels DIR [DIR ...]: only the device times of K2, K5, K6 and K7,
+    # this tree's beside each DIR's in one process
     mode = sys.argv[1] if len(sys.argv) > 2 else None
     other = sys.argv[2] if mode == "--launchers" else None
     sys.path.insert(0, other or str(ROOT))
@@ -1596,7 +1725,7 @@ def main():
                         launcher_host_us(S, dev).items()))
         return 0
     if mode == "--kernels":
-        kernels_against(sys.argv[2], dev, card)
+        kernels_against(sys.argv[2:], dev, card)
         return 0
 
     t0 = time.perf_counter()
@@ -1606,9 +1735,8 @@ def main():
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     for name, text in logs.items():
         (OUT_DIR / f"ptxas_{name}.log").write_text(text)
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(text):
+            log(f"  {name}: {line}")
 
     record = {
         "pair_fwd": dict(source="admp_tpu_torch/csrc/pairs.cu",

@@ -19,12 +19,15 @@ dispersion force (energy 1e-5 relative, forces and dE/dc_list 1e-4 relative
 RMSE) against their plain paths. The tiled pair: K5 within 1e-5 max|mesh| of
 its plain version and of the plain spread and the same on every run (its
 sum order is fixed), K7 bit for bit, on grids the tile divides and does
-not, with atoms outside the box; K5 on a crowded tile that holds more
-atoms than its stage (chunks, in a fixed order); the plain versions under
+not, with atoms outside the box, and K7 where its warps cross from one bin
+into the next beside empty bins; K5 on a crowded tile that holds more atoms
+than its stage (chunks, in a fixed order); the plain versions under
 gradcheck at float64; second-order pulls on the kernels; and 'auto' on a
 256^3 mesh launching K5/K7 and not K4/K6. K6 bit for bit on axes shorter
 than the stencil and on rows that wrap at K3, on a side stream, and the
-launchers' refusal of bases on another device.
+launchers' refusal of bases on another device. K2 and K3 also on tables
+crafted onto each branch of the pair energy (degenerate pairs, the frame
+guard, masked pairs, zero-pol sites, the pscale sigmoid, the Thole cut).
 """
 
 import numpy as np
@@ -121,6 +124,71 @@ def test_pair_kernels_match_plain(dev, kind, lmax):
     for name, a, b in zip(("g_i", "g_j", "scl", "scal"), out_k, out_p):
         assert bool(torch.isfinite(a).all()), name
         assert _rel(a, b) < 1e-5, (name, _rel(a, b))
+
+
+def _branch_tables(dev, kind, lmax):
+    """_tables with pairs crafted onto each branch of the pair energy, 40
+    pairs each: degenerate pairs (equal raw y and z), the frame guard (raw y
+    and z one box vector apart: the wrapped d lies along x), masked pairs,
+    and for the Thole kinds zero-pol sites on one side and on both, pscale
+    at 0 and at 1e-3 -+ 1e-4 (the sigmoid's slope), and pol 1e-9 on both
+    sides (damping width 1e-3: a Thole argument far above the exp cut at
+    50)."""
+    g_i, g_j, scl, scal, ct = _tables(dev, kind, lmax)
+    live = torch.nonzero(scl[1] > 0.5).flatten()
+    gen = torch.Generator().manual_seed(0)
+    blocks = live[torch.randperm(live.numel(), generator=gen).to(dev)][
+        :8 * 40].reshape(8, 40)
+    box = scal[1:10].reshape(3, 3)
+    b = blocks[0]  # degenerate
+    g_j[b, 1:3] = g_i[b, 1:3]
+    g_j[b, 0] = g_i[b, 0] + 2.5
+    b = blocks[1]  # the frame guard
+    g_j[b, :3] = g_i[b, :3] + box[1]
+    g_j[b, 0] += 2.0
+    scl[1, blocks[2]] = 0.0  # masked
+    if kind != "perm":
+        pscale = 2 if kind == "pol" else 0  # the pscale row
+        g_i[blocks[3], -2] = 0.0
+        g_i[blocks[4], -2] = 0.0
+        g_j[blocks[4], -2] = 0.0
+        scl[pscale, blocks[5]] = 0.0
+        scl[pscale, blocks[6, :20]] = 1e-3 - 1e-4
+        scl[pscale, blocks[6, 20:]] = 1e-3 + 1e-4
+        g_i[blocks[7], -2] = 1e-9
+        g_j[blocks[7], -2] = 1e-9
+    return g_i, g_j, scl, scal, ct
+
+
+@pytest.mark.parametrize("kind,lmax", [("perm", 2), ("pol", 0), ("pol", 1),
+                                       ("pol", 2), ("uu", 1)])
+def test_pair_backward_takes_autograds_side_of_each_branch(dev, kind, lmax):
+    """K2 (mixed mode) on _branch_tables against autograd of the plain
+    version in float32, every output within 1e-5 relative RMSE; K3 on the
+    same tables under its own gate against the plain version in float64."""
+    g_i, g_j, scl, scal, ct = _branch_tables(dev, kind, lmax)
+    out_k = P.launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
+    leaves = [t.clone().requires_grad_(True) for t in (g_i, g_j, scl, scal)]
+    out_p = torch.autograd.grad(
+        (P.pair_energies_torch(*leaves, lmax, kind) * ct).sum(), leaves)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("g_i", "g_j", "scl", "scal"), out_k, out_p):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) < 1e-5, (name, _rel(a, b))
+    assert bool((out_k[2][1] == 0).all())  # the mask row
+    masked = scl[1] <= 0.5
+    assert bool((out_k[0][masked] == 0).all() and (out_k[1][masked] == 0).all())
+    x = (g_i, g_j, scl, scal)
+    cs = P.hvp_directions(x, kind, seed=5)
+    h_k = P.launch_pair_hvp(*x, ct, *cs, lmax, kind)
+    h_64 = P.pair_hvp_torch(*(t.double() for t in (*x, ct, *cs)), lmax, kind)
+    h_32 = P.pair_hvp_torch(*x, ct, *cs, lmax, kind)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("g_i", "g_j", "scl", "scal", "ct"), h_k, h_32,
+                             h_64):
+        assert bool(torch.isfinite(a).all()), name
+        tol = max(1e-4, 2 * _rel(b, c))
+        assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
 
 
 def _directions(tables, seed, kind):
@@ -400,6 +468,36 @@ def test_tiled_spread_walks_a_crowded_bin_in_chunks(dev, order, channels):
     assert float((mesh_k - mesh_p).abs().max()) <= 1e-5 * scale
     assert torch.equal(mesh_k, again)  # the chunks sum in a fixed order
     assert S.launch_spread_tiled.by_shape[order, channels] - before == 2
+
+
+@pytest.mark.parametrize("order,channels", [(6, 1), (4, 3)])
+def test_tiled_gather_across_bins_and_empty_bins(dev, order, channels):
+    """K7 bit for bit where its warps cross from one bin into the next: one
+    atom in each of 120 scattered tiles (a warp's 32 stencil rows span two
+    slots, and so two bins, wherever a slot ends inside it), beside one
+    tile of 7, with most bins empty; bases outside the box and rows that
+    wrap at every axis."""
+    rng = np.random.default_rng(16)
+    grid = (72, 40, 100)  # 9 x 5 x 4 tiles, the last z tile partial
+    tiles = rng.choice(9 * 5 * 4, 120, replace=False)
+    t3, t2, t1 = tiles % 4, tiles // 4 % 5, tiles // 20
+    corner = np.stack([t1 * 8, t2 * 8, t3 * 32], 1)
+    inside = rng.integers(0, np.minimum(S.TILE, np.array(grid) - corner))
+    bases = np.concatenate([corner + inside, np.full((7, 3), 8) + np.arange(
+        7)[:, None]])
+    # m_u0 with base (m_u0 - order/2) mod K, shifted by whole boxes
+    shift = rng.integers(-1, 2, bases.shape) * np.array(grid)
+    m_u0 = torch.tensor(bases + order // 2 + shift, device=dev,
+                        dtype=torch.int32)
+    mesh = torch.randn((channels, *grid), device=dev)
+    bins = S.tile_bins(m_u0, grid, S.TILE, order)
+    counts = bins.offsets[1:] - bins.offsets[:-1]
+    assert int((counts == 0).sum()) > 0 and int((counts == 1).sum()) >= 100
+    before = S.launch_gather_tiled.by_shape[order, channels]
+    out = S.launch_gather_tiled(bins, mesh, grid, order)
+    assert torch.equal(out, S.gather_torch(m_u0, mesh, grid, order))
+    assert torch.equal(out, S.gather_tiled_torch(bins, mesh, grid, order))
+    assert S.launch_gather_tiled.by_shape[order, channels] - before == 1
 
 
 @pytest.mark.parametrize("grid", [(5, 4, 7), (9, 7, 3), (20, 16, 37)])

@@ -1,0 +1,165 @@
+"""The pair kernels' device source on the host: ``csrc/pair_energy.cuh``,
+compiled with the host's C++ compiler behind a small shim for the CUDA
+keywords, with a loop over the pairs in place of the grid.
+
+K2's mixed-mode gradient body (``pair_grad_mixed`` at S = float) is held
+against autograd of the plain version ``pair_energies_torch`` in float32,
+every output within 1e-5 relative RMSE (the card's gate), for all seven
+(kind, lmax) on the cuda tests' tables and on the tables crafted onto each
+branch of the pair energy. Its S = Dual1 instantiation (the derivatives of
+its outputs along a direction, which K3 would take from it) is held against
+the plain HVP in float64 within max(1e-4, 2 x the plain float32 HVP's
+error), K3's own gate. Skips where no C++ compiler is found.
+"""
+
+import ctypes
+import pathlib
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from admp_tpu_torch.ops.cuda import pairs as P
+from tests.test_torch_kernels_cuda import _branch_tables, _rel, _tables
+
+CSRC = pathlib.Path(P.__file__).resolve().parents[2] / "csrc"
+KINDS = [("perm", 0), ("perm", 1), ("perm", 2), ("pol", 0), ("pol", 1),
+         ("pol", 2), ("uu", 1)]
+
+# the CUDA keywords and intrinsics pair_energy.cuh uses, for one host thread
+SHIM = r"""
+#pragma once
+#include <cmath>
+#include <cstddef>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+struct HostDim3 { unsigned x, y, z; };
+static HostDim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
+typedef void* cudaStream_t;
+inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }
+inline void __syncthreads() {}
+using std::floor;
+"""
+
+# every pair in turn; the scalar gradients summed over all pairs
+HARNESS = r"""
+#include "pair_energy.cuh"
+template <int KIND, int LMAX, class S>
+void grad(const float* gi, const float* gj, const float* scl, const float* scal,
+          const float* ct, const float* cgi, const float* cgj, const float* cscl,
+          const float* cscal, float* dgi, float* dgj, float* dscl, float* dct,
+          float* dscal, int C) {
+  constexpr int F = Layout<KIND, LMAX>::F;
+  for (int k = 0; k < kNScal; ++k) dscal[k] = 0.f;
+  for (int p = 0; p < C; ++p) {
+    float sg[kNScal] = {0};
+    const size_t r = static_cast<size_t>(p) * F;
+    pair_grad_mixed<KIND, LMAX, S>(p, C, gi + r, gj + r, scl, scal, ct,
+                                   cgi ? cgi + r : nullptr, cgj ? cgj + r : nullptr,
+                                   cscl, cscal, dgi + r, dgj + r, dscl, dct, sg);
+    for (int k = 0; k < kNScal; ++k) dscal[k] += sg[k];
+  }
+}
+template <class S>
+int grad_any(int kind, int lmax, const float* gi, const float* gj, const float* scl,
+             const float* scal, const float* ct, const float* cgi, const float* cgj,
+             const float* cscl, const float* cscal, float* dgi, float* dgj, float* dscl,
+             float* dct, float* dscal, int C) {
+#define ARGS gi, gj, scl, scal, ct, cgi, cgj, cscl, cscal, dgi, dgj, dscl, dct, dscal, C
+  if (kind == kUU) { grad<kUU, 0, S>(ARGS); return 0; }
+  switch (kind * 3 + lmax) {
+    case 0: grad<kPerm, 0, S>(ARGS); return 0;
+    case 1: grad<kPerm, 1, S>(ARGS); return 0;
+    case 2: grad<kPerm, 2, S>(ARGS); return 0;
+    case 3: grad<kPol, 0, S>(ARGS); return 0;
+    case 4: grad<kPol, 1, S>(ARGS); return 0;
+    case 5: grad<kPol, 2, S>(ARGS); return 0;
+  }
+  return -1;
+#undef ARGS
+}
+extern "C" int host_pair_grad(int dual, int kind, int lmax, const float* gi,
+                              const float* gj, const float* scl, const float* scal,
+                              const float* ct, const float* cgi, const float* cgj,
+                              const float* cscl, const float* cscal, float* dgi,
+                              float* dgj, float* dscl, float* dct, float* dscal, int C) {
+  return dual ? grad_any<Dual1>(kind, lmax, gi, gj, scl, scal, ct, cgi, cgj, cscl, cscal,
+                                dgi, dgj, dscl, dct, dscal, C)
+              : grad_any<float>(kind, lmax, gi, gj, scl, scal, ct, cgi, cgj, cscl, cscal,
+                                dgi, dgj, dscl, dct, dscal, C);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler on this machine")
+    d = tmp_path_factory.mktemp("pair_host")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "harness.cc").write_text(HARNESS)
+    so = d / "libpairhost.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-fPIC", "-shared", f"-I{d}",
+                    f"-I{CSRC}", "-o", str(so), str(d / "harness.cc")],
+                   check=True, capture_output=True, timeout=600)
+    return ctypes.CDLL(str(so))
+
+
+def _host_grad(lib, tables, lmax, kind, directions=None):
+    """(d_gi, d_gj, d_scl, d_scal[, d_ct]) of the host body: its gradient
+    (S = float), or with ``directions`` its derivative along them."""
+    g_i, g_j, scl, scal, ct = tables
+    out = [torch.empty_like(g_i), torch.empty_like(g_j), torch.empty_like(scl),
+           torch.empty_like(ct), torch.empty(P.N_SCAL)]
+    cs = directions if directions is not None else [None] * 4
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    status = lib.host_pair_grad(
+        int(directions is not None), P.KINDS[kind], lmax,
+        *map(ptr, (g_i, g_j, scl, scal, ct, *cs, *out)), g_i.shape[0])
+    assert status == 0
+    d_gi, d_gj, d_scl, d_ct, d_scal = out
+    return (d_gi, d_gj, d_scl, d_scal) + ((d_ct,) if directions is not None
+                                          else ())
+
+
+def _tables_of(which, kind, lmax):
+    make = _branch_tables if which == "branches" else _tables
+    return make(torch.device("cpu"), kind, lmax)
+
+
+@pytest.mark.parametrize("which", ["plain", "branches"])
+@pytest.mark.parametrize("kind,lmax", KINDS)
+def test_pair_backward_body_matches_autograd(host_lib, kind, lmax, which):
+    tables = _tables_of(which, kind, lmax)
+    g_i, g_j, scl, scal, ct = tables
+    out_k = _host_grad(host_lib, tables, lmax, kind)
+    leaves = [t.clone().requires_grad_(True) for t in (g_i, g_j, scl, scal)]
+    out_p = torch.autograd.grad(
+        (P.pair_energies_torch(*leaves, lmax, kind) * ct).sum(), leaves)
+    for name, a, b in zip(("g_i", "g_j", "scl", "scal"), out_k, out_p):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) < 1e-5, (name, _rel(a, b))
+    masked = scl[1] <= 0.5
+    assert bool((out_k[2][1] == 0).all())  # the mask row
+    assert bool((out_k[0][masked] == 0).all() and (out_k[1][masked] == 0).all())
+
+
+@pytest.mark.parametrize("kind,lmax", KINDS)
+def test_pair_backward_body_in_dual_arithmetic_gives_the_hvp(host_lib, kind,
+                                                              lmax):
+    tables = _tables_of("branches", kind, lmax)
+    cs = P.hvp_directions(tables[:4], kind, seed=5)
+    out_k = _host_grad(host_lib, tables, lmax, kind, cs)
+    out_64 = P.pair_hvp_torch(*(t.double() for t in (*tables, *cs)), lmax, kind)
+    out_32 = P.pair_hvp_torch(*tables, *cs, lmax, kind)
+    for name, a, b, c in zip(("g_i", "g_j", "scl", "scal", "ct"), out_k, out_32,
+                             out_64):
+        assert bool(torch.isfinite(a).all()), name
+        tol = max(1e-4, 2 * _rel(b, c))
+        assert _rel(a, c) <= tol, (name, _rel(a, c), tol)

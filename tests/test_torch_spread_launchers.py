@@ -6,8 +6,10 @@ it builds or launches anything on what its kernel cannot take: a CPU tensor,
 float64, a non-contiguous tensor, a wrong shape, an order or a channel count
 it has no template for, and bases that are not (N, 3) int32. The error names
 the first failure, in the order order, type, contiguity, shape, device, so
-each case shows here on the CPU. The kernels themselves, and a device
-mismatch, are held on the card (tests/test_torch_kernels_cuda.py).
+each case shows here on the CPU; the tiled launchers check their bins first
+(their order and tile, then their fit to the grid: tiles per axis, the
+length of offsets and perm). The kernels themselves, and a device mismatch,
+are held on the card (tests/test_torch_kernels_cuda.py).
 """
 
 import numpy as np
@@ -90,3 +92,44 @@ def test_tiled_launcher_refuses_bins_of_another_order(launcher):
     x = q if launcher.startswith("spread") else mesh
     with pytest.raises(ValueError, match="bins of order 6"):
         fn(S.tile_bins(m_u0, GRID, S.TILE, 6), x, GRID, 4)
+
+
+def _bins_of_another_grid(m_u0):
+    # (32, 12, 40) has 4 tiles along x where GRID has 2
+    return S.tile_bins(m_u0, (32, 12, 40), S.TILE, 6)
+
+
+def _truncated_offsets(m_u0):
+    bins = S.tile_bins(m_u0, GRID, S.TILE, 6)
+    bins.offsets = bins.offsets[:-1]
+    return bins
+
+
+def _short_perm(m_u0):
+    bins = S.tile_bins(m_u0, GRID, S.TILE, 6)
+    bins.perm = bins.perm[1:]
+    return bins
+
+
+BAD_BINS = {
+    # case: (the bins, the words the error carries)
+    "another_grid": (_bins_of_another_grid, "tiles per axis"),
+    "truncated_offsets": (_truncated_offsets, "offsets of shape"),
+    "short_perm": (_short_perm, "perm of shape"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_BINS))
+@pytest.mark.parametrize("launcher", ["spread_tiled", "gather_tiled"])
+def test_tiled_launcher_refuses_bins_of_another_grid(launcher, case):
+    """Bins of the same order and tile but made for another grid, or whose
+    offsets or permutation have the wrong length, are refused before the
+    device check, so on the CPU too, and nothing launches."""
+    make, words = BAD_BINS[case]
+    m_u0, q, mesh = _inputs()
+    fn = getattr(S, f"launch_{launcher}")
+    x = q if launcher.startswith("spread") else mesh
+    before = fn.launches
+    with pytest.raises(ValueError, match=words):
+        fn(make(m_u0), x, GRID, 6)
+    assert fn.launches == before

@@ -4,21 +4,19 @@
 // The energy of one pair (pair_energy below) is written once, templated over
 // its scalar type. Forward-mode dual numbers Dual<N, S> carry N tangents over
 // a base scalar S, which is `float` or itself a one-tangent dual (Dual1).
-// K2's body, pair_grad_mixed / pair_energy_grad, is mixed mode, each sweep in
-// the direction with few inputs: a forward in S that keeps the frame, the
-// rotated harmonics and the coefficients; a reverse by hand through the
-// bilinear contractions (perm_adjoint, induced_adjoint) and the transposed
-// rotations (rotate_harm_t, rotate_dipole_t) for the features; and the same
-// templated source in forward mode over the narrow inputs only (Dual<3>
-// over the displacement through the frame and the rotations, Dual<3> and
-// Dual<7> over the coefficient functions' scalar inputs), so each branch of
-// the forward takes autograd's side. It is instantiated at S = float; at
-// S = Dual1 it gives the derivatives K3 needs. K3 still runs pair_grad: the
-// energy in Dual<N, Dual1> in ceil(NV / N) passes over the pair's NV
-// independent inputs (the wrapped displacement, both sites' features, the
-// differentiable scale rows and kappa). Both chain-rule the minimum-image
-// wrap by hand in S arithmetic (wrap_grad). Row layouts are documented in
-// admp_tpu_torch/ops/cuda/pairs.py.
+// The gradient body, pair_grad_mixed / pair_energy_grad, is mixed mode, each
+// sweep in the direction with few inputs: a forward in S that keeps the
+// frame, the rotated harmonics and the coefficients; a reverse by hand
+// through the bilinear contractions (perm_adjoint, induced_adjoint) and the
+// transposed rotations (rotate_harm_t, rotate_dipole_t) for the features;
+// and the same templated source in forward mode over the narrow inputs only
+// (Dual<3> over the displacement through the frame and the rotations,
+// Dual<3> and Dual<7> over the coefficient functions' scalar inputs), so
+// each branch of the forward takes autograd's side. K2 runs it at S = float;
+// K3 runs the same body at S = Dual1, every input carrying its entry of a
+// direction, which gives each gradient entry's derivative along it. The
+// minimum-image wrap is chain-ruled by hand in S arithmetic (wrap_grad). Row
+// layouts are documented in admp_tpu_torch/ops/cuda/pairs.py.
 
 #pragma once
 
@@ -237,9 +235,6 @@ struct Layout {
   // differentiable scale rows: s[0] <- row 0 (mscale; pscale for 'uu'),
   // s[1] <- row 2 (pscale, 'pol'); row 1 is the mask
   static constexpr int NS = KIND == kPol ? 2 : 1;
-  // independent inputs of one pair: wrapped d(3), both sites' features,
-  // the scale rows, kappa
-  static constexpr int NV = 3 + 2 * NF + NS + 1;
 };
 
 __device__ __forceinline__ int scale_row(int k) { return k == 0 ? 0 : 2; }
@@ -564,7 +559,7 @@ __device__ __forceinline__ Wrapped<S> wrap(const S* a, const S* b, const S* box,
 }
 
 // ---------------------------------------------------------------------------
-// The gradient body of K2 (S = float) and K3 (S = Dual1)
+// The gradient body's inputs in S, its masked pairs and the wrap's chain rule
 // ---------------------------------------------------------------------------
 
 // An input of the pair as S: its value, and for Dual1 its tangent t[k] (the
@@ -636,88 +631,8 @@ __device__ __forceinline__ void wrap_grad(const Wrapped<S>& w, const S* box, con
   }
 }
 
-// For pair p: the gradient of ct[p] * e_p with respect to both rows, the
-// scale rows and (accumulated into sg) the 19 scalars, evaluated in S. With
-// S = Dual1 every input carries its entry of the direction (cgi, cgj, cscl,
-// cscal), so part() of each gradient entry is that entry of ct H c, and
-// part(e) is J c, written to dct. The per-pair outputs of a masked pair are
-// zeros.
-template <int KIND, int LMAX, class S, int NT>
-__device__ __forceinline__ void pair_grad(
-    int p, int C, const float* __restrict__ gi, const float* __restrict__ gj,
-    const float* __restrict__ scl, const float* __restrict__ scal,
-    const float* __restrict__ ct, const float* __restrict__ cgi,
-    const float* __restrict__ cgj, const float* __restrict__ cscl,
-    const float* __restrict__ cscal, float* __restrict__ dgi, float* __restrict__ dgj,
-    float* __restrict__ dscl, float* __restrict__ dct, float* sg) {
-  using L = Layout<KIND, LMAX>;
-  using D = Dual<NT, S>;
-  constexpr int F = L::F;
-  constexpr int NF = L::NF;
-  constexpr int NS = L::NS;
-  const size_t row = static_cast<size_t>(p) * F;
-  if (!(scl[C + p] > 0.5f)) {
-    zero_pair<L>(p, C, dgi + row, dgj + row, dscl, dct);
-    return;
-  }
-  S a[F], b[F], box[9], binv[9];
-#pragma unroll
-  for (int k = 0; k < F; ++k) {
-    a[k] = lift<S>(gi[row + k], cgi, row + k);
-    b[k] = lift<S>(gj[row + k], cgj, row + k);
-  }
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    box[k] = lift<S>(scal[1 + k], cscal, 1 + k);
-    binv[k] = lift<S>(scal[10 + k], cscal, 10 + k);
-  }
-  const Wrapped<S> w = wrap(a, b, box, binv);
-  const bool degenerate = (val(a[1]) == val(b[1])) && (val(a[2]) == val(b[2]));
-  const float ctp = ct[p];
-  S sv[NS];
-  sv[0] = lift<S>(scl[p], cscl, p);
-  if constexpr (NS > 1) sv[1] = lift<S>(scl[2 * C + p], cscl, 2 * C + p);
-  const S kappa = lift<S>(scal[0], cscal, 0);
-  S gd[3];
-
-  for (int off = 0; off < L::NV; off += NT) {
-    D dd[3], fi[NF], fj[NF], s[NS];
-    int v = -off;
-#pragma unroll
-    for (int m = 0; m < 3; ++m) dd[m] = seed<NT>(w.d[m], v++);
-#pragma unroll
-    for (int m = 0; m < NF; ++m) fi[m] = seed<NT>(a[3 + m], v++);
-#pragma unroll
-    for (int m = 0; m < NF; ++m) fj[m] = seed<NT>(b[3 + m], v++);
-#pragma unroll
-    for (int m = 0; m < NS; ++m) s[m] = seed<NT>(sv[m], v++);
-    const D kp = seed<NT>(kappa, v);
-    const D e = pair_energy<D, KIND, LMAX>(dd[0], dd[1], dd[2], degenerate, fi, fj, s, kp);
-    if (off == 0 && dct != nullptr) dct[p] = part(e.v);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int k = off + t;
-      if (k >= L::NV) break;
-      const S g = ctp * e.d[t];
-      if (k < 3) {
-        gd[k] = g;
-      } else if (k < 3 + NF) {
-        dgi[row + k] = part(g);  // feature k-3 is column k
-      } else if (k < 3 + 2 * NF) {
-        dgj[row + (k - NF)] = part(g);
-      } else if (k < 3 + 2 * NF + NS) {
-        dscl[scale_row(k - 3 - 2 * NF) * C + p] = part(g);
-      } else {
-        sg[0] += part(g);  // kappa
-      }
-    }
-  }
-  wrap_grad(w, box, binv, gd, dgi + row, dgj + row, sg);
-  dscl[C + p] = 0.f;  // the mask row
-}
-
 // ---------------------------------------------------------------------------
-// K2's gradient body: mixed mode
+// The gradient body of K2 (S = float) and K3 (S = Dual1): mixed mode
 // ---------------------------------------------------------------------------
 
 // The transpose of rotate_harm's linear map q -> out at a fixed frame f:
@@ -1059,11 +974,15 @@ __device__ __forceinline__ void pair_energy_grad(const S* d, bool degenerate, co
   }
 }
 
-// K2's body (S = float): the outputs of pair_grad, from the mixed-mode
-// gradient pair_energy_grad; written over S as pair_grad is, so that S =
-// Dual1 gives the same outputs' derivatives along a direction. ri, rj: the
-// pair's two input rows; ci, cj: their direction rows (S = Dual1, else
-// unread); oi, oj: its two output rows (K2 stages them in shared memory).
+// For pair p: the gradient of ct[p] e_p with respect to both rows, the
+// scale rows and (accumulated into sg) the 19 scalars, from the mixed-mode
+// gradient pair_energy_grad, evaluated in S. K2's body at S = float; K3's at
+// S = Dual1, where every input carries its entry of the direction (ci, cj,
+// cscl, cscal), so part() of each gradient entry is that entry of ct H c,
+// and part(e) is J c, written to dct. ri, rj: the pair's two input rows; ci,
+// cj: their direction rows (S = Dual1, else unread); oi, oj: its two output
+// rows (the kernels stage them in shared memory). The per-pair outputs of a
+// masked pair are zeros.
 template <int KIND, int LMAX, class S>
 __device__ __forceinline__ void pair_grad_mixed(
     int p, int C, const float* __restrict__ ri, const float* __restrict__ rj,
@@ -1114,6 +1033,22 @@ __device__ __forceinline__ void pair_grad_mixed(
   for (int m = 0; m < 3; ++m) gd[m] = ctp * gd[m];
   wrap_grad(w, box, binv, gd, oi, oj, sg);
   dscl[C + p] = 0.f;  // the mask row
+}
+
+// A block's output rows, staged by its threads in s_out[0] and s_out[1]
+// (thread t at row t, F floats each), stored from pair p0 on as two
+// contiguous runs: coalesced, where a thread's own row stores would put 32
+// rows under each store of a warp. Every thread of the block calls it, after
+// the barrier that ends the staging.
+template <int F>
+__device__ __forceinline__ void store_rows(const float (&s_out)[2][kBlock * F], int p0, int C,
+                                           float* __restrict__ oi, float* __restrict__ oj) {
+  const int n = (C - p0 < kBlock ? C - p0 : kBlock) * F;
+  const size_t first = static_cast<size_t>(p0) * F;
+  for (int k = threadIdx.x; k < n; k += kBlock) {
+    oi[first + k] = s_out[0][k];
+    oj[first + k] = s_out[1][k];
+  }
 }
 
 // Per-block sums of the 19 scalar gradients into dscal_blocks[blockIdx.x],

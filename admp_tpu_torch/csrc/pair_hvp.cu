@@ -6,22 +6,24 @@
 // returns d_x = ct H_e(x) c for both rows and the scale rows, d_ct = J_e(x) c,
 // and the per-block sums of d_x for the 19 scalars (kappa, box, box inverse).
 //
-// Design: forward mode over K2's function. pair_grad (pair_energy.cuh), the
-// forward-mode gradient body K2 ran before its mixed-mode one, is evaluated
-// in Dual1 arithmetic: every input of the pair carries its entry
-// of c as a tangent (the wrap's inputs too: raw = a - b gets cgi - cgj, box
-// and box inverse get cscal), so each gradient entry comes out with its
-// derivative along c, which is the HVP entry, and the energy with J c. The
-// hand chain rule of the wrap runs in Dual1 as well, which keeps the
-// position x box, position x box-inverse and box x box-inverse second
-// derivatives of the virial. One thread per pair, ceil(NV / kHvpTangents)
-// passes of Dual<kHvpTangents, Dual1>.
+// Design: K2's own body in one-tangent duals, as the TPU kernel takes
+// jax.jvp of its gradient inside the body. pair_grad_mixed (pair_energy.cuh),
+// K2's mixed-mode gradient, runs at S = Dual1: every input of the pair
+// carries its entry of c as a tangent (raw = a - b gets cgi - cgj, box and
+// box inverse get cscal), so each gradient entry comes out with its
+// derivative along c, the HVP entry, and the energy with J c. The hand chain
+// rule of the wrap runs in Dual1 too, which keeps the position x box,
+// position x box-inverse and box x box-inverse terms of the virial. The first
+// version ran the energy in Dual<2, Dual1> over every input of the pair: 17
+// passes of the whole forward for 'pol' lmax 2.
 //
-// Bound on the card: arithmetic and registers. The nested dual doubles every
-// value of pair_grad's passes, so K3 takes 2 tangents a pass to hold the
-// register footprint; the dual arrays spill to local
-// memory (L1-resident). A pair reads 4F+2 n_scl+2 floats and writes
-// 2F+n_scl+1.
+// Bound on the card: arithmetic, registers and latency, not bytes (a pair
+// reads 4F + 2 n_scl + 2 floats and writes 2F + n_scl + 1). Dual1 doubles
+// every value of K2's body, so the body spills past the 255-register cap;
+// hvp_min_blocks sets the blocks per SM the register allocator plans for. As
+// K2, each thread stages its two output rows in shared memory and the block
+// stores them coalesced (store_rows); the scalar gradients are reduced per
+// block in a fixed order (reduce_scalars), deterministic, no atomics.
 //
 // C interface (loaded with ctypes; returns cudaGetLastError(), or -1 for an
 // unsupported (kind, lmax)):
@@ -34,10 +36,13 @@
 
 namespace {
 
-constexpr int kHvpTangents = 2;
+// K3's blocks per SM for the register allocator (launch bounds)
+__host__ __device__ constexpr int hvp_min_blocks(int kind, int lmax) {
+  return kind == kPerm ? 2 : 3;
+}
 
 template <int KIND, int LMAX>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, hvp_min_blocks(KIND, LMAX))
 pair_hvp_kernel(const float* __restrict__ gi, const float* __restrict__ gj,
                 const float* __restrict__ scl, const float* __restrict__ scal,
                 const float* __restrict__ ct, const float* __restrict__ cgi,
@@ -45,13 +50,21 @@ pair_hvp_kernel(const float* __restrict__ gi, const float* __restrict__ gj,
                 const float* __restrict__ cscal, float* __restrict__ dgi,
                 float* __restrict__ dgj, float* __restrict__ dscl, float* __restrict__ dct,
                 float* __restrict__ dscal_blocks, int C) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int F = Layout<KIND, LMAX>::F;
+  __shared__ float s_out[2][kBlock * F];
+  const int p0 = blockIdx.x * kBlock;
+  const int p = p0 + threadIdx.x;
   float sg[kNScal];
 #pragma unroll
   for (int k = 0; k < kNScal; ++k) sg[k] = 0.f;
-  if (p < C)
-    pair_grad<KIND, LMAX, Dual1, kHvpTangents>(p, C, gi, gj, scl, scal, ct, cgi, cgj, cscl,
-                                               cscal, dgi, dgj, dscl, dct, sg);
+  if (p < C) {
+    const size_t row = static_cast<size_t>(p) * F;
+    pair_grad_mixed<KIND, LMAX, Dual1>(p, C, gi + row, gj + row, scl, scal, ct, cgi + row,
+                                       cgj + row, cscl, cscal, s_out[0] + threadIdx.x * F,
+                                       s_out[1] + threadIdx.x * F, dscl, dct, sg);
+  }
+  __syncthreads();
+  store_rows<F>(s_out, p0, C, dgi, dgj);
   reduce_scalars(sg, dscal_blocks);
 }
 

@@ -80,9 +80,7 @@ __host__ __device__ constexpr int bwd_min_blocks(int kind, int lmax) {
 }
 
 // K2: one thread per pair; each thread's two output rows are staged in
-// shared memory and the block stores its rows as two contiguous runs
-// (coalesced), where a thread's own row stores would put 32 rows under each
-// store of a warp
+// shared memory and the block stores them as two contiguous runs (store_rows)
 template <int KIND, int LMAX>
 __global__ void __launch_bounds__(kBlock, bwd_min_blocks(KIND, LMAX))
 pair_bwd_kernel(const float* __restrict__ gi, const float* __restrict__ gj,
@@ -104,12 +102,7 @@ pair_bwd_kernel(const float* __restrict__ gi, const float* __restrict__ gj,
                                        s_out[1] + threadIdx.x * F, dscl, nullptr, sg);
   }
   __syncthreads();
-  const int n = min(kBlock, C - p0) * F;
-  const size_t first = static_cast<size_t>(p0) * F;
-  for (int k = threadIdx.x; k < n; k += kBlock) {
-    dgi[first + k] = s_out[0][k];
-    dgj[first + k] = s_out[1][k];
-  }
+  store_rows<F>(s_out, p0, C, dgi, dgj);
   reduce_scalars(sg, dscal_blocks);
 }
 

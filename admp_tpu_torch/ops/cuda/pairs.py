@@ -36,10 +36,11 @@ through the frame and the rotations and the coefficient functions' 3 or 7
 scalar inputs, from the same templated source as the forward, so each of
 its branches (the degenerate frame, the damping floor, the Thole clips)
 takes autograd's side. It stages each block's output rows in shared memory
-and stores them coalesced. K3 still runs the forward-mode body that K2 ran
-before (every input seeded, in passes of two tangents), each value a
-one-tangent dual along c; the mixed-mode body also compiles in that
-arithmetic, which is K3's next step (ROADMAP.md).
+and stores them coalesced. K3 runs the same mixed-mode body with every value
+a one-tangent dual along c (as admp_tpu's kernel takes ``jax.jvp`` of its
+gradient), with K2's staged stores: each gradient entry comes out with its
+derivative along c. The launchers keep their host work lean, as the spread
+launchers do (ops/cuda/entries.py).
 
 Autograd: ``PairEnergyFn`` (forward K1) has the backward ``PairBwdFn``
 (forward K2, backward K3), so the pair energies are twice differentiable on
@@ -57,6 +58,8 @@ from torch.autograd.function import once_differentiable
 
 from admp_tpu_torch.ops import realspace
 from admp_tpu_torch.ops.cuda import build, use_kernel
+from admp_tpu_torch.ops.cuda.entries import entry as _entry
+from admp_tpu_torch.ops.cuda.entries import raw_stream as _raw_stream
 
 N_SCAL = 19  # kappa + box (9) + inv(box) (9)
 KINDS = {"perm": 0, "pol": 1, "uu": 2}
@@ -159,35 +162,50 @@ def hvp_directions(tables, kind: str, seed: int):
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_I = ctypes.c_int
+_F32 = torch.float32
+# (kind, lmax) -> columns of the packed table, for every (kind, lmax) the
+# kernels take ('uu' has one template, whatever lmax it is given)
+_WIDTHS = {(k, lmax): _width(lmax, k) for k in KINDS for lmax in range(3)}
+# C entry point of a block size -> pairs per thread block, read once
+_block_sizes = {}
 
 
-def _lib():
-    lib = build.load("pairs")
-    if not getattr(lib, "_admp_typed", False):
-        lib.admp_pair_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
-        lib.admp_pair_fwd.restype = _I
-        lib.admp_pair_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _P]
-        lib.admp_pair_bwd.restype = _I
-        lib.admp_pair_block_size.argtypes = []
-        lib.admp_pair_block_size.restype = _I
-        lib._admp_typed = True
-    return lib
+def _n_blocks(c: int, name: str) -> int:
+    """Thread blocks of a launch over c pairs (admp_pair_block_size or
+    admp_pair_hvp_block_size, read from the library once)."""
+    size = _block_sizes.get(name)
+    if size is None:
+        size = _block_sizes[name] = _entry(name)()
+    return -(-c // size)
 
 
-def _hvp_lib():
-    lib = build.load("pair_hvp")
-    if not getattr(lib, "_admp_typed", False):
-        lib.admp_pair_hvp.argtypes = [_P] * 14 + [_I, _I, _I, _P]
-        lib.admp_pair_hvp.restype = _I
-        lib.admp_pair_hvp_block_size.argtypes = []
-        lib.admp_pair_hvp_block_size.restype = _I
-        lib._admp_typed = True
-    return lib
+# The launchers take the spread launchers' lean path (ops/cuda/entries.py):
+# one pass of checks (_fits; the error that names a failure is worked out
+# only then, by _refuse), the C entry point and the raw stream from
+# entries, torch.empty, the call, the counts.
+
+
+def _fits(dev, lmax, kind, g_i, g_j, scl, scal, *operands):
+    """Whether the kernels take the tables as they are: a (kind, lmax) they
+    have a template for, contiguous float32 tables of the kind's shapes on
+    CUDA device ``dev`` (g_i.get_device()), and ``operands`` ((tensor,
+    shape)) float32 of their shapes on the same device, of any strides."""
+    f = _WIDTHS.get((kind, lmax))
+    if f is None or dev < 0:
+        return False
+    c = g_i.shape[0]
+    for t, shape in ((g_i, (c, f)), (g_j, (c, f)), (scl, (_n_scl(kind), c)),
+                     (scal, (N_SCAL,))):
+        if not (t.dtype is _F32 and t.shape == shape and t.is_contiguous()
+                and t.get_device() == dev):
+            return False
+    return all(t.dtype is _F32 and t.shape == shape and t.get_device() == dev
+               for t, shape in operands)
 
 
 def _check(g_i, g_j, scl, scal, lmax, kind):
+    """Raise the ValueError that names the first thing the kernels cannot
+    take in the tables."""
     if kind not in KINDS:
         raise ValueError(f"kind={kind!r}: expected one of {tuple(KINDS)}")
     if not 0 <= lmax <= 2:
@@ -205,28 +223,47 @@ def _check(g_i, g_j, scl, scal, lmax, kind):
 
 
 def _operand(name, t, like):
-    """A cotangent or direction operand: ``like``'s shape, float32, on its
-    device; returned contiguous (PyTorch hands zero cotangents and an
-    expanded ``ct`` with zero strides)."""
+    """Raise the ValueError for a cotangent or direction operand that is not
+    of ``like``'s shape, float32, on its device."""
     if (tuple(t.shape) != tuple(like.shape) or t.dtype != torch.float32
             or t.device != like.device):
         raise ValueError(f"{name}: needs a float32 tensor of shape "
                          f"{tuple(like.shape)} on {like.device}")
-    return t.contiguous()
+
+
+def _refuse(g_i, g_j, scl, scal, lmax, kind, names=(), operands=()):
+    """Raise the ValueError that names the first thing the kernels cannot
+    take: in the tables (_check), then in the operands (_operand; ct is
+    shaped as a column of g_i, c_gi as g_i, c_gj as g_j, c_scl as scl,
+    c_scal as scal)."""
+    _check(g_i, g_j, scl, scal, lmax, kind)
+    for name, t, like in zip(names, operands, (g_i[:, 0], g_i, g_j, scl,
+                                               scal)):
+        _operand(name, t, like)
+    raise ValueError(f"pair tables ({kind}, lmax={lmax}): not taken")
+
+
+def _dense(t):
+    """t contiguous (PyTorch hands zero cotangents and an expanded ``ct``
+    with zero strides)."""
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def launch_pair_fwd(g_i, g_j, scl, scal, lmax: int, kind: str):
     """K1: per-pair energies (C,) from the CUDA kernel."""
-    _check(g_i, g_j, scl, scal, lmax, kind)
+    dev = g_i.get_device()
+    if not _fits(dev, lmax, kind, g_i, g_j, scl, scal):
+        _refuse(g_i, g_j, scl, scal, lmax, kind)
     c = g_i.shape[0]
-    e = torch.empty(c, device=g_i.device, dtype=torch.float32)
+    e = torch.empty(c, dtype=_F32, device=g_i.device)
     if c == 0:
         return e
-    status = _lib().admp_pair_fwd(
-        g_i.data_ptr(), g_j.data_ptr(), scl.data_ptr(), scal.data_ptr(),
-        e.data_ptr(), c, KINDS[kind], lmax,
-        torch.cuda.current_stream(g_i.device).cuda_stream)
-    build.check(status, f"pair forward ({kind}, lmax={lmax})")
+    status = _entry("admp_pair_fwd")(
+        _P(g_i.data_ptr()), _P(g_j.data_ptr()), _P(scl.data_ptr()),
+        _P(scal.data_ptr()), _P(e.data_ptr()), c, KINDS[kind], lmax,
+        _P(_raw_stream(dev)))
+    if status:
+        build.check(status, f"pair forward ({kind}, lmax={lmax})")
     launch_pair_fwd.launches += 1
     return e
 
@@ -236,25 +273,27 @@ launch_pair_fwd.launches = 0
 
 def launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax: int, kind: str):
     """K2: gradients of sum(ct * e) w.r.t. (g_i, g_j, scl, scal)."""
-    _check(g_i, g_j, scl, scal, lmax, kind)
+    dev = g_i.get_device()
     c = g_i.shape[0]
-    ct = _operand("ct", ct, g_i[:, 0])
+    if not _fits(dev, lmax, kind, g_i, g_j, scl, scal, (ct, (c,))):
+        _refuse(g_i, g_j, scl, scal, lmax, kind, ("ct",), (ct,))
     dgi = torch.empty_like(g_i)
     dgj = torch.empty_like(g_j)
     dscl = torch.empty_like(scl)
     if c == 0:
         return dgi, dgj, dscl, torch.zeros_like(scal)
-    lib = _lib()
-    n_blocks = -(-c // lib.admp_pair_block_size())
-    dscal_blocks = torch.empty((n_blocks, N_SCAL), device=g_i.device,
-                               dtype=torch.float32)
-    status = lib.admp_pair_bwd(
-        g_i.data_ptr(), g_j.data_ptr(), scl.data_ptr(), scal.data_ptr(),
-        ct.data_ptr(), dgi.data_ptr(), dgj.data_ptr(), dscl.data_ptr(),
-        dscal_blocks.data_ptr(), c, KINDS[kind], lmax,
-        torch.cuda.current_stream(g_i.device).cuda_stream)
-    build.check(status, f"pair backward ({kind}, lmax={lmax})")
+    ct = _dense(ct)
+    dscal_blocks = torch.empty(_n_blocks(c, "admp_pair_block_size"), N_SCAL,
+                               dtype=_F32, device=g_i.device)
+    status = _entry("admp_pair_bwd")(
+        _P(g_i.data_ptr()), _P(g_j.data_ptr()), _P(scl.data_ptr()),
+        _P(scal.data_ptr()), _P(ct.data_ptr()), _P(dgi.data_ptr()),
+        _P(dgj.data_ptr()), _P(dscl.data_ptr()), _P(dscal_blocks.data_ptr()),
+        c, KINDS[kind], lmax, _P(_raw_stream(dev)))
+    if status:
+        build.check(status, f"pair backward ({kind}, lmax={lmax})")
     launch_pair_bwd.launches += 1
+    # the blocks' sums in a fixed order: deterministic
     return dgi, dgj, dscl, dscal_blocks.sum(dim=0)
 
 
@@ -266,29 +305,27 @@ def launch_pair_hvp(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl, c_scal,
     """K3: the VJP of K2 at cotangents (c_gi, c_gj, c_scl, c_scal) of its
     outputs. Returns (d_gi, d_gj, d_scl, d_scal, d_ct): ct H c for every
     input of the pair energies and J c for ct."""
-    _check(g_i, g_j, scl, scal, lmax, kind)
+    dev = g_i.get_device()
     c = g_i.shape[0]
-    ct = _operand("ct", ct, g_i[:, 0])
-    c_gi = _operand("c_gi", c_gi, g_i)
-    c_gj = _operand("c_gj", c_gj, g_j)
-    c_scl = _operand("c_scl", c_scl, scl)
-    c_scal = _operand("c_scal", c_scal, scal)
+    ops = (ct, c_gi, c_gj, c_scl, c_scal)
+    if not _fits(dev, lmax, kind, g_i, g_j, scl, scal, *zip(
+            ops, ((c,), g_i.shape, g_j.shape, scl.shape, scal.shape))):
+        _refuse(g_i, g_j, scl, scal, lmax, kind,
+                ("ct", "c_gi", "c_gj", "c_scl", "c_scal"), ops)
     dgi = torch.empty_like(g_i)
     dgj = torch.empty_like(g_j)
     dscl = torch.empty_like(scl)
-    dct = torch.empty_like(ct)
+    dct = torch.empty(c, dtype=_F32, device=g_i.device)
     if c == 0:
         return dgi, dgj, dscl, torch.zeros_like(scal), dct
-    lib = _hvp_lib()
-    n_blocks = -(-c // lib.admp_pair_hvp_block_size())
-    dscal_blocks = torch.empty((n_blocks, N_SCAL), device=g_i.device,
-                               dtype=torch.float32)
-    status = lib.admp_pair_hvp(
-        *(t.data_ptr() for t in (g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl,
-                                 c_scal, dgi, dgj, dscl, dct, dscal_blocks)),
-        c, KINDS[kind], lmax,
-        torch.cuda.current_stream(g_i.device).cuda_stream)
-    build.check(status, f"pair HVP ({kind}, lmax={lmax})")
+    dscal_blocks = torch.empty(_n_blocks(c, "admp_pair_hvp_block_size"),
+                               N_SCAL, dtype=_F32, device=g_i.device)
+    status = _entry("admp_pair_hvp")(
+        *(_P(t.data_ptr()) for t in (g_i, g_j, scl, scal, *map(_dense, ops),
+                                     dgi, dgj, dscl, dct, dscal_blocks)),
+        c, KINDS[kind], lmax, _P(_raw_stream(dev)))
+    if status:
+        build.check(status, f"pair HVP ({kind}, lmax={lmax})")
     launch_pair_hvp.launches += 1
     launch_pair_hvp.by_kind[kind] += 1
     return dgi, dgj, dscl, dscal_blocks.sum(dim=0), dct

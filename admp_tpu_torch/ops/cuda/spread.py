@@ -7,17 +7,19 @@ Replaces admp_tpu/ops/pallas/spread.py ``_make_spread_kernel`` (:210, via
 TPU at K3 % 128 == 0 hands over to the XLA row gather ``_row_gather_impl``
 (:1291). Source: admp_tpu_torch/csrc/spread.cu.
 
-The spread accumulates each atom's order^3 stencil values, for C channels,
-onto the periodic (C, K1, K2, K3) mesh: one thread per (atom, stencil point),
-one f32 atomicAdd per channel. The gather reads the cotangent mesh at the same
-indices: one lane per stencil row (atom, x, y) wraps the row once for every
-channel, and each warp reads its rows' z runs and writes its span of the
-output in rounds of 32 consecutive values. It is exact, equal bit for bit to
-the plain gather. Neither has admp_tpu's slab buckets, capacities or scatter
-fallback; atomics take their place. Bound on the card by the atomic and
-memory traffic of N order^3 C values; the mesh stays in L2. At 3000 atoms a
-gather's device work is shorter than a PyTorch op's host work, so the
-launchers keep their own host work lean (below).
+Both work by stencil rows: one lane per row (atom, x, y) wraps the row once
+for every channel, and each warp takes its rows' values in rounds of 32
+consecutive values. The spread accumulates each atom's order^3 stencil
+values, for C channels, onto the periodic (C, K1, K2, K3) mesh by f32
+atomics (float4 windows of a row's values where K3 % 4 == 0), into a mesh
+that its C entry zeroes on the stream first. The gather reads the
+cotangent mesh at the same indices and writes its span of the output; it
+is exact, equal bit for bit to the plain gather. Neither has admp_tpu's
+slab buckets, capacities or scatter fallback; atomics take their place.
+Bound on the card by the atomic and memory traffic of N order^3 C values;
+the mesh stays in L2. At 3000 atoms a call's device work is shorter than a
+PyTorch op's host work, so the launchers keep their own host work lean
+(below).
 
 ``SpreadFn`` and ``GatherFn`` are each other's backward, as admp_tpu pairs
 its custom_vjps (spread.py:1343-1397), so derivatives of any order stay on
@@ -56,6 +58,8 @@ import ctypes
 import torch
 
 from admp_tpu_torch.ops.cuda import SPREAD_METHODS, build, use_kernel
+from admp_tpu_torch.ops.cuda.entries import entry as _entry
+from admp_tpu_torch.ops.cuda.entries import raw_stream as _raw_stream
 
 ORDERS = (4, 6)
 CHANNELS = (1, 3)
@@ -106,40 +110,16 @@ def gather_torch(m_u0, mesh, grid_shape, order: int):
 # Kernel launchers
 # ---------------------------------------------------------------------------
 
-# The launchers sit on every step of the 3000-atom paths, where K6's device
-# work (~3 us on the H100) is shorter than one PyTorch op's host work, so
-# their own host work is lean: one pass of checks (the error that names a
-# failure is worked out only then, by _refusal); the C entry point from a
-# dict once its library is loaded (no lock); the raw current stream of the
-# tensor's device (no torch.cuda.Stream object); torch.empty with its sizes
-# as arguments; the call; the counts. The entry points are called through a
-# PyDLL view of their library without argtypes: a launch only enqueues
-# work, so it keeps the GIL, and pointers go as c_void_p, sizes as Python
-# ints (typed arguments cost more). torch.empty and the C entry's call
-# (ctypes and the launch) take about a third of the call each (PERF.md).
+# The launchers' host work is lean (ops/cuda/entries.py): one pass of checks
+# (the error that names a failure is worked out only then, by _refusal); the
+# C entry point and the raw current stream from entries; torch.empty with its
+# sizes as arguments (K4's C entry zeroes its mesh on the stream, where
+# torch.zeros would add a fill launch); the call; the counts. torch.empty
+# and the C entry's call (ctypes and the launch) take about a third of the
+# call each (PERF.md).
 
 _P = ctypes.c_void_p
 _F32, _I32 = torch.float32, torch.int32
-_LIBS = {"admp_spread": "spread", "admp_gather": "spread",
-         "admp_spread_tiled": "spread_tiled",
-         "admp_gather_tiled": "spread_tiled"}  # C entry point -> library
-_entries = {}  # C entry point -> its ctypes function
-# device index -> its current CUDA stream as an int (None in a CPU-only
-# torch, where every launcher raises before it would be called)
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _entry(name: str):
-    """The C entry point ``name`` (returning an int status). The first call
-    builds and loads its library (build.load); later calls read it from
-    ``_entries``."""
-    fn = _entries.get(name)
-    if fn is None:
-        lib = build.load(_LIBS[name])
-        fn = getattr(ctypes.PyDLL(lib._name, handle=lib._handle), name)
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
 
 
 def _fits(idx, x, dev, order):
@@ -196,20 +176,22 @@ def _mesh_shape_error(mesh, grid_shape):
 
 
 def launch_spread(m_u0, q_points, grid_shape, order: int):
-    """K4: (N, C, order^3) stencil values -> (C, K1, K2, K3) mesh."""
+    """K4: (N, C, order^3) stencil values -> (C, K1, K2, K3) mesh. The C
+    entry zeroes the mesh on the current stream, then launches K4 (at N = 0
+    it only zeroes it)."""
     dev = q_points.get_device()
     shape_error = _q_shape_error(q_points, m_u0, grid_shape, order)
     if shape_error or not _fits(m_u0, q_points, dev, order):
         raise _refusal(m_u0, q_points, "q_points", order, shape_error)
     n, n_ch, _ = q_points.shape
     k1, k2, k3 = (int(k) for k in grid_shape)
-    mesh = torch.zeros(n_ch, k1, k2, k3, dtype=_F32, device=q_points.device)
+    mesh = torch.empty(n_ch, k1, k2, k3, dtype=_F32, device=q_points.device)
+    status = _entry("admp_spread")(
+        _P(m_u0.data_ptr()), _P(q_points.data_ptr()), _P(mesh.data_ptr()), n,
+        n_ch, order, k1, k2, k3, _P(_raw_stream(dev)))
+    if status:
+        build.check(status, f"spread (order {order}, {n_ch} channels)")
     if n:
-        status = _entry("admp_spread")(
-            _P(m_u0.data_ptr()), _P(q_points.data_ptr()), _P(mesh.data_ptr()),
-            n, n_ch, order, k1, k2, k3, _P(_raw_stream(dev)))
-        if status:
-            build.check(status, f"spread (order {order}, {n_ch} channels)")
         launch_spread.launches += 1
         launch_spread.by_shape[order, n_ch] += 1
     return mesh

@@ -12,8 +12,10 @@ Phases (any failure exits nonzero; no phase failure is caught):
      tiled spread and gather (K5, K7) at the 98k-atom shapes: (order 6, C=1)
      at 320^3 and 256^3 on the step's stencils, (4, 3) at 320^3 on random
      ones, and K5 on one crowded tile (more atoms than its stage holds) at
-     (6, 1) and (4, 3), each K5 mesh the same on a second launch; K6 also on
-     stencil rows that wrap at K3;
+     (6, 1) and (4, 3), each K5 mesh the same on a second launch; K4 and K6
+     also on stencil rows that wrap at K3 and, at every (order, C), on axes
+     shorter than the stencil; K4 through its C entry into a mesh filled
+     with NaN (the entry zeroes it);
   3. the MD path: the polarizable multipolar PME energy+force step of
      1000 waters (3000 atoms, lmax=2, rc 4 A, ethresh 1e-4, K3=128, the MD
      SCF profile), one cold step and 10 warm drift steps, plus one
@@ -47,25 +49,30 @@ Phases (any failure exits nonzero; no phase failure is caught):
      the exact-adjoint step and of the full-force-field step, ms per fitting
      step, ms/step of the 98k step on K5/K7, on K4/K6 and plain at 320^3 and
      256^3 (median of 3 x 5 steps), one profiler window each of the MD,
-     full-force-field and 98k steps, and each kernel beside its plain
-     version, its bound on the card and, where one exists, the one PyTorch
-     call that computes the same function (at the 98k shapes too), and the
-     host us per call of K6's and K5's launchers.
+     exact-adjoint, full-force-field and 98k steps, and each kernel beside
+     its plain version, its bound on the card and, where one exists, the one
+     PyTorch call that computes the same function (at the 98k shapes too),
+     and the host us per call of the launchers of K1-K6 (K4 beside one
+     torch.index_add, K6 beside one torch.take).
 
     python3 chip_smoke.py --launchers DIR
+    python3 chip_smoke.py --adjoint DIR
 
-prints only that last line, for the admp_tpu_torch in DIR (another commit's
-checkout), so that two launchers compare in one run on the card, and
+print only that last line, or only the exact-adjoint step's ms/step and
+profile, for the admp_tpu_torch in DIR (another commit's checkout, or .),
+so that two trees compare in one run on the card, and
 
     python3 chip_smoke.py --kernels DIR [DIR ...]
 
-only the device times of K2, K5, K6 and K7 built from this tree's sources and
-from each DIR's, on the same inputs in one process, in turns (median of 5), each
-checked first (K6, K7 bit for bit against the plain gather, K5 within 1e-5
-of the other tree's mesh, K2 within 1e-5 relative RMSE of autograd), and
-the registers and spills of each tree's K2 and K7: K2 'pol' at the MD shapes and
-'perm' at 98k, K5 and K7 at 98k on 320^3 and 256^3, K6 at the MD, full FF
-and 98k shapes.
+only the device times of K2-K7 built from this tree's sources and from each
+DIR's, on the same inputs in one process, in turns (median of 5), each
+checked first (K6, K7 bit for bit against the plain gather, K4 within 1e-5
+of the plain spread, K5 within 1e-5 of the other tree's mesh, K2 within
+1e-5 relative RMSE of autograd, K3 under its float64 gate), and the
+registers and spills of each tree's K2, K3, K4 and K7: K2 'pol' at the MD
+shapes and 'perm' at 98k, K3 'pol', 'uu' and 'perm' at the MD shapes, K4 at
+the MD (6, 1), full FF (4, 3) and 98k 320^3 shapes, K5 and K7 at 98k on
+320^3 and 256^3, K6 at the MD, full FF and 98k shapes.
 Phase 2 also holds the three-channel spread and gather (K4, K6 at C=3) on the
 dispersion stencil at orders 4 and 6.
 Each path's launch counts are set to 0 just before it runs and read just
@@ -448,16 +455,63 @@ def check_spread(w, record):
     m_wrap[::3, 2] = grid[2] - 1
     wrap_k = S.launch_gather(m_wrap, g_mesh, grid, 6)
     wrap_p = S.gather_torch(m_wrap, g_mesh, grid, 6)
+    swrap_k = S.launch_spread(m_wrap, q, grid, 6)
+    swrap_p = S.spread_torch(m_wrap, q, grid, 6)
+    # K4's C entry zeroes the mesh it is given: a buffer filled with NaN
+    nan_mesh = torch.full((1, *grid), float("nan"), device=q.device)
+    status = S._entry("admp_spread")(
+        *(S._P(t.data_ptr()) for t in (m_u0, q, nan_mesh)), m_u0.shape[0], 1,
+        6, *grid, S._P(S._raw_stream(q.get_device())))
     torch.cuda.synchronize()
     gerr = float((out_k - out_p).abs().max())
+    serr_wrap = float((swrap_k - swrap_p).abs().max()) / float(
+        swrap_p.abs().max())
+    serr_nan = float((nan_mesh - mesh_p).abs().max()) / scale
     log(f"gather order 6: bitwise equal {bool(torch.equal(out_k, out_p))}, "
-        f"on rows that wrap at K3 {bool(torch.equal(wrap_k, wrap_p))}")
+        f"on rows that wrap at K3 {bool(torch.equal(wrap_k, wrap_p))}; "
+        f"spread on rows that wrap at K3 {serr_wrap:.3e} x max|mesh|, "
+        f"through its C entry into a mesh of NaN {serr_nan:.3e} x max|mesh|")
     require(torch.equal(out_k, out_p), "gather differs from plain gather")
     require(torch.equal(wrap_k, wrap_p),
             "gather differs from plain gather on rows that wrap at K3")
+    require(serr_wrap <= TOL_SPREAD, f"spread on rows that wrap {serr_wrap}")
+    require(status == 0 and serr_nan <= TOL_SPREAD,
+            f"spread into a mesh of NaN: status {status}, {serr_nan}")
     record["spread"]["max_abs_err"] = err
     record["gather"]["max_abs_err"] = gerr
     record["_spread_inputs"] = (m_u0, q, g_mesh)
+
+
+def check_spread_rows(dev):
+    """K4 and K6 at every (order, C) on axes shorter than the stencil (z by
+    its remainder) and on rows that wrap at K3 (K4's float4 windows at K3 =
+    12 and 20), random bases in and out of the box, against the plain spread
+    (TOL_SPREAD) and gather (bit for bit)."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    rng = np.random.default_rng(11)
+    for grid in ((5, 4, 7), (9, 7, 3), (20, 16, 37), (12, 10, 12),
+                 (9, 7, 20)):
+        for order, n_ch in S.SHAPES:
+            bases = np.stack([rng.integers(-9, k + 9, 300) for k in grid], 1)
+            bases[:20, 2] = grid[2] - 1  # these rows run past K3 and wrap
+            m_u0 = torch.tensor(bases, device=dev, dtype=torch.int32)
+            q = torch.tensor(rng.standard_normal((300, n_ch, order ** 3)),
+                             device=dev, dtype=torch.float32)
+            g = torch.tensor(rng.standard_normal((n_ch, *grid)), device=dev,
+                             dtype=torch.float32)
+            mesh_k = S.launch_spread(m_u0, q, grid, order)
+            mesh_p = S.spread_torch(m_u0, q, grid, order)
+            same = torch.equal(S.launch_gather(m_u0, g, grid, order),
+                               S.gather_torch(m_u0, g, grid, order))
+            torch.cuda.synchronize()
+            err = float((mesh_k - mesh_p).abs().max()) / float(
+                mesh_p.abs().max())
+            log(f"spread/gather ({order}, {n_ch}) on grid {grid}: spread "
+                f"{err:.3e} x max|mesh|, gather bitwise equal {same}")
+            require(err <= TOL_SPREAD, f"spread ({order}, {n_ch}) {grid}: "
+                    f"{err}")
+            require(same, f"gather ({order}, {n_ch}) {grid} differs")
 
 
 def disp_stencil(w, order):
@@ -1365,18 +1419,23 @@ def time_large_kernels(w, card):
                 f"({dev_ms:.4f} ms device){extra}")
 
 
-def launcher_host_us(S, dev, rounds=5, n=1000, parts=False):
+def launcher_host_us(S, P, dev, rounds=5, n=1000, parts=False):
     """Host us per call (time.perf_counter over n back-to-back calls, no
     synchronize inside: the launches queue up on the card, so this is the
-    caller's own host work), the median of ``rounds`` rounds that take
-    every call in turn: K6's launcher at the MD shapes ((6, 1), 3000 atoms
-    on (96, 96, 128)) and the full force field's ((4, 3) on 128^3), one
-    torch.take of the same function beside each, and K5's launcher at
-    98,304 atoms on 320^3. The bases and values are random from a seed: the
-    host work does not depend on them. ``S`` is the ops/cuda/spread module
-    under test. With ``parts``, also two pieces of K6's launcher at the MD
-    shapes alone: torch.empty of its output, and the C entry point's call
-    (ctypes and the launch) into a buffer made beforehand."""
+    caller's own host work while the card keeps up), the median of
+    ``rounds`` rounds that take every call in turn: K6's and K4's launchers
+    at the MD shapes ((6, 1), 3000 atoms on (96, 96, 128)) and the full
+    force field's ((4, 3) on 128^3), one torch.take beside K6 and one
+    torch.index_add beside K4 (the same functions), K5's launcher at 98,304
+    atoms on 320^3, and K1's, K2's and K3's launchers ('pol' lmax 2) on 4,096
+    pairs (one wave of blocks) over 200 calls, since K3's one wave outlasts
+    its launcher's host work and fewer calls queue fewer launches ahead of
+    the card. The inputs are random from a seed: the host work does not
+    depend on them. ``S`` and ``P`` are the ops/cuda/spread and
+    ops/cuda/pairs modules under test. With ``parts``, also two pieces of
+    K6's launcher at the MD shapes alone: torch.empty of its output, and
+    the C entry point's call (ctypes and the launch) into a buffer made
+    beforehand."""
     rng = np.random.default_rng(14)
 
     def inputs(n_atoms, grid, n_ch, order):
@@ -1392,7 +1451,7 @@ def launcher_host_us(S, dev, rounds=5, n=1000, parts=False):
     calls = {}
     for grid, n_ch, order in (((96, 96, K3), 1, 6),
                               ((K_FF,) * 3, 3, DISP_ORDER)):
-        m_u0, mesh, _ = inputs(3000, grid, n_ch, order)
+        m_u0, mesh, q = inputs(3000, grid, n_ch, order)
         kcube = mesh[0].numel()
         idx = (S.flat_stencil_indices(m_u0, grid, order)[:, None, :]
                + (torch.arange(n_ch, device=dev) * kcube)[None, :, None])
@@ -1400,11 +1459,17 @@ def launcher_host_us(S, dev, rounds=5, n=1000, parts=False):
             S.launch_gather, m_u0, mesh, grid, order)
         calls[f"torch.take ({order}, {n_ch})"] = functools.partial(
             torch.take, mesh, idx)
+        calls[f"spread ({order}, {n_ch})"] = functools.partial(
+            S.launch_spread, m_u0, q, grid, order)
+        calls[f"torch.index_add ({order}, {n_ch})"] = functools.partial(
+            torch.index_add, torch.zeros(n_ch * kcube, device=dev), 0,
+            idx.transpose(0, 1).reshape(-1), q.transpose(0, 1).reshape(-1))
         if parts and n_ch == 1:
             out = torch.empty(3000, 1, order ** 3, device=dev)
-            P = ctypes.c_void_p
-            args = (P(m_u0.data_ptr()), P(mesh.data_ptr()), P(out.data_ptr()),
-                    3000, 1, order, *grid, P(S._raw_stream(0)))
+            ptr = ctypes.c_void_p
+            args = (ptr(m_u0.data_ptr()), ptr(mesh.data_ptr()),
+                    ptr(out.data_ptr()), 3000, 1, order, *grid,
+                    ptr(S._raw_stream(0)))
             calls["torch.empty (6, 1)"] = functools.partial(
                 torch.empty, 3000, 1, order ** 3, dtype=torch.float32,
                 device=dev)
@@ -1415,16 +1480,33 @@ def launcher_host_us(S, dev, rounds=5, n=1000, parts=False):
     bins = S.tile_bins(m_u0, grid98, S.TILE, 6)
     calls["spread_tiled (6, 1) 98k"] = functools.partial(
         S.launch_spread_tiled, bins, q, grid98, 6)
+    # 'pol' lmax 2 tables: positions in a 10 A cubic box, unmasked pairs
+    c = 4096
+    f32 = dict(device=dev, dtype=torch.float32)
+    g = [torch.tensor(rng.standard_normal((c, 17)), **f32) for _ in range(2)]
+    for t in g:
+        t[:, :3] = torch.tensor(rng.uniform(0, 10, (c, 3)), **f32)
+    scl = torch.ones(3, c, **f32)
+    eye = torch.eye(3, **f32).reshape(-1)
+    scal = torch.cat([torch.tensor([0.3], **f32), 10 * eye, 0.1 * eye])
+    ct = torch.ones(c, **f32)
+    calls["pair_fwd (pol, 2)"] = functools.partial(
+        P.launch_pair_fwd, *g, scl, scal, 2, "pol")
+    calls["pair_bwd (pol, 2)"] = functools.partial(
+        P.launch_pair_bwd, *g, scl, scal, ct, 2, "pol")
+    calls["pair_hvp (pol, 2)"] = functools.partial(
+        P.launch_pair_hvp, *g, scl, scal, ct, *g, scl, scal, 2, "pol")
     times = {k: [] for k in calls}
     for _ in range(rounds):
         for label, fn in calls.items():
             for _ in range(10):
                 fn()
             torch.cuda.synchronize()
+            count = 200 if label.startswith("pair_") else n
             t0 = time.perf_counter()
-            for _ in range(n):
+            for _ in range(count):
                 fn()
-            times[label].append((time.perf_counter() - t0) / n * 1e6)
+            times[label].append((time.perf_counter() - t0) / count * 1e6)
             torch.cuda.synchronize()
     return {k: statistics.median(v) for k, v in times.items()}
 
@@ -1460,22 +1542,44 @@ def large_pair_inputs(w):
             _pair_scalars(0.7296, box).contiguous(), LMAX)
 
 
+def device_by_kernel(fn, n=20):
+    """ms per call of each device activity of fn() (kernels, memsets), by
+    name, from one profile of n calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = e.name[:48]
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    return out
+
+
 def kernels_against(others, dev, card, repeats=5):
-    """Device ms per call of K2, K5, K6 and K7 from this tree's sources and
-    from those of each checkout in ``others`` (built there by its own
-    build.py, all at once, and loaded beside this tree's: the C interfaces
-    are the same), on the same inputs in one process, the trees taken in
-    turn, median of ``repeats`` profiles each, every call checked first: K2
-    'pol' at the MD shapes and 'perm' at 98k (every output within
-    TOL_PAIR_GRAD relative RMSE of autograd of the plain version), K5 at
-    98k on 320^3 and 256^3 (each tree's mesh within TOL_SPREAD of this
-    tree's), K6 at the MD shapes, at the full force field's (4, 3) and at
-    98k on 320^3 and 256^3, K7 at 98k on 320^3 and 256^3 (K6 and K7 bit
-    for bit against the plain gather). Logged, with the registers and
-    spills of every tree's K2 and K7."""
+    """Device ms per call of K2-K7 from this tree's sources and from those
+    of each checkout in ``others`` (built there by its own build.py, all at
+    once, and loaded beside this tree's: the C interfaces are the same), on
+    the same inputs in one process, the trees taken in turn, median of
+    ``repeats`` profiles each, every call checked first: K2 'pol' at the MD
+    shapes and 'perm' at 98k (every output within TOL_PAIR_GRAD relative
+    RMSE of autograd of the plain version), K3 'pol', 'uu' and 'perm' at the
+    MD shapes (every output under K3's float64 gate, hvp_ok), K4 at the MD
+    shapes (6, 1), the full force field's (4, 3) and 98k on 320^3 (within
+    TOL_SPREAD of the plain spread), K5 at 98k on 320^3 and 256^3 (each
+    tree's mesh within TOL_SPREAD of this tree's), K6 at the MD shapes, at
+    the full force field's (4, 3) and at 98k on 320^3 and 256^3, K7 at 98k
+    on 320^3 and 256^3 (K6 and K7 bit for bit against the plain gather).
+    Logged, with the registers and spills of every tree's K2, K3, K4 and
+    K7."""
     from admp_tpu_torch.ops.cuda import build, pairs as PP, spread as S
 
-    names = ("pairs", "spread", "spread_tiled")
+    names = ("pairs", "pair_hvp", "spread", "spread_tiled")
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "from admp_tpu_torch.ops.cuda import build as b; "
             f"logs = b.build({names!r}); print(json.dumps("
@@ -1492,9 +1596,11 @@ def kernels_against(others, dev, card, repeats=5):
         paths, logs[d] = json.loads(out)
         libs[d] = {n: ctypes.PyDLL(path) for n, path in zip(names, paths)}
     for name, tree_logs in logs.items():
-        for lib in ("pairs", "spread_tiled"):
+        for lib in names:
             for line in ptxas_summary(tree_logs.get(lib, "")):
-                if "pair_bwd" in line or "gather_tiled" in line:
+                if any(k in line for k in ("pair_bwd", "pair_hvp",
+                                           "spread_kernel", "spread_vec",
+                                           "gather_tiled")):
                     log(f"[{card}] {name} {lib}: {line}")
     P = ctypes.c_void_p
     stream = P(S._raw_stream(0))
@@ -1505,12 +1611,17 @@ def kernels_against(others, dev, card, repeats=5):
                             dtype=torch.float32)
 
     w = build_workload(dev)
-    m_md = spread_inputs(w)[0]
-    m_ff = disp_stencil(w, DISP_ORDER)[0]
+    m_md, q_md = spread_inputs(w)
+    m_ff, q_ff = disp_stencil(w, DISP_ORDER)
     cases = [("K6 MD (6, 1)", m_md, mesh_of((1, *w["grid"])), 6),
              (f"K6 full FF ({DISP_ORDER}, 3)", m_ff,
               mesh_of((3, K_FF, K_FF, K_FF)), DISP_ORDER)]
+    spreads = [("K4 MD (6, 1)", m_md, q_md, w["grid"], 6),
+               (f"K4 full FF ({DISP_ORDER}, 3)", m_ff, q_ff, (K_FF,) * 3,
+                DISP_ORDER)]
     pair_cases = [("K2 MD 'pol'", "pol", pair_inputs(w, "pol"))]
+    hvp_cases = [(f"K3 MD '{kind}'", kind, pair_inputs(w, kind))
+                 for kind in ("pol", "uu", "perm")]
     w98 = build_large(dev)
     tiled, gathers = [], []
     for k in (K98, K98_ALT):
@@ -1521,12 +1632,22 @@ def kernels_against(others, dev, card, repeats=5):
         bins = S.tile_bins(m98, grid)
         tiled.append((f"K5 98k {k}^3 (6, 1)", bins, q98, grid))
         gathers.append((f"K7 98k {k}^3 (6, 1)", m98, bins, mesh))
+        if k == K98:
+            spreads.append((f"K4 98k {k}^3 (6, 1)", m98, q98, grid, 6))
     pair_cases.append(("K2 98k 'perm'", "perm", large_pair_inputs(w98)))
 
     def gather(lib, m_u0, mesh, order, out):
         return lambda: lib["spread"].admp_gather(
             P(m_u0.data_ptr()), P(mesh.data_ptr()), P(out.data_ptr()),
             m_u0.shape[0], mesh.shape[0], order, *mesh.shape[1:], stream)
+
+    def spread(lib, m_u0, q, order, mesh, zero):
+        call = lambda: lib["spread"].admp_spread(  # noqa: E731
+            P(m_u0.data_ptr()), P(q.data_ptr()), P(mesh.data_ptr()),
+            m_u0.shape[0], q.shape[1], order, *mesh.shape[1:], stream)
+        if not zero:
+            return call
+        return lambda: (mesh.zero_(), call())[1]
 
     def spread_tiled(lib, bins, q, grid, out):
         return lambda: lib["spread_tiled"].admp_spread_tiled(
@@ -1547,6 +1668,13 @@ def kernels_against(others, dev, card, repeats=5):
             *(P(t.data_ptr()) for t in (g_i, g_j, scl, scal, ct, *outs)),
             g_i.shape[0], PP.KINDS[kind], lmax, stream)
 
+    def pair_hvp(lib, tables, ct, cs, kind, outs):
+        g_i, g_j, scl, scal, lmax = tables
+        return lambda: lib["pair_hvp"].admp_pair_hvp(
+            *(P(t.data_ptr()) for t in (g_i, g_j, scl, scal, ct, *cs,
+                                        *outs)),
+            g_i.shape[0], PP.KINDS[kind], lmax, stream)
+
     calls = {}
     for label, m_u0, mesh, order in cases:
         ref = S.gather_torch(m_u0, mesh, tuple(mesh.shape[1:]),
@@ -1558,6 +1686,28 @@ def kernels_against(others, dev, card, repeats=5):
             torch.cuda.synchronize()
             require(torch.equal(out, ref), f"{label} of {name}: not the "
                     "plain gather's values")
+    for label, m_u0, q, grid, order in spreads:
+        ref = S.spread_torch(m_u0, q, grid, order)
+        scale = float(ref.abs().max())
+        for name, lib in libs.items():
+            # How the harness tells the two C contracts apart: an
+            # admp_spread that zeroes its mesh (this tree's) leaves no NaN
+            # of a buffer filled with NaN; one that accumulates into the
+            # mesh it is given (the parent's: its launcher zeroed it by
+            # torch.zeros) leaves them, and its timed call zeroes the mesh
+            # first (mesh.zero_()), so that both sides count a zeroing
+            mesh = torch.full_like(ref, float("nan"))
+            require(spread(lib, m_u0, q, order, mesh, False)() == 0,
+                    f"{label} of {name}: launch")
+            torch.cuda.synchronize()
+            zero = bool(torch.isnan(mesh).any())
+            calls[label, name] = spread(lib, m_u0, q, order, mesh, zero)
+            require(calls[label, name]() == 0, f"{label} of {name}: launch")
+            torch.cuda.synchronize()
+            err = float((mesh - ref).abs().max()) / scale
+            log(f"[{card}] {label} of {name}: {err:.3e} x max|mesh| from "
+                f"the plain spread; zeroes its own mesh {not zero}")
+            require(err <= TOL_SPREAD, f"{label} of {name}: {err}")
     for label, m_u0, bins, mesh in gathers:
         ref = S.gather_torch(m_u0, mesh, tuple(mesh.shape[1:]), 6)
         for name, lib in libs.items():
@@ -1602,6 +1752,30 @@ def kernels_against(others, dev, card, repeats=5):
             require(all(e < TOL_PAIR_GRAD for e in errs),
                     f"{label} of {name}: {errs}")
         del ref, leaves
+    for label, kind, tables in hvp_cases:
+        g_i, g_j, scl, scal, lmax = tables
+        c = g_i.shape[0]
+        ct = torch.tensor(rng.uniform(0.5, 1.5, c), device=dev,
+                          dtype=torch.float32)
+        cs = PP.hvp_directions(tables[:4], kind, seed=5)
+        x = (*tables[:4], ct, *cs)
+        ref64 = PP.pair_hvp_torch(*(t.double() for t in x), lmax, kind)
+        ref32 = PP.pair_hvp_torch(*x, lmax, kind)
+        for name, lib in libs.items():
+            n_blocks = -(-c // lib["pair_hvp"].admp_pair_hvp_block_size())
+            outs = (torch.empty_like(g_i), torch.empty_like(g_j),
+                    torch.empty_like(scl), torch.empty_like(ct),
+                    torch.empty(n_blocks, PP.N_SCAL, device=dev))
+            calls[label, name] = pair_hvp(lib, tables, ct, cs, kind, outs)
+            require(calls[label, name]() == 0, f"{label} of {name}: launch")
+            torch.cuda.synchronize()
+            got = (outs[0], outs[1], outs[2], outs[4].sum(dim=0), outs[3])
+            errs = [hvp_ok(*t) for t in zip(got, ref32, ref64)]
+            log(f"[{card}] {label} C={c} of {name}: rel RMSE vs plain f64 "
+                "d_gi, d_gj, d_scl, d_scal, d_ct (plain f32): " + ", ".join(
+                    f"{e[0]:.3e} ({e[1]:.3e})" for e in errs))
+            require(all(e[2] for e in errs), f"{label} of {name}: {errs}")
+        del ref64, ref32
     times = {key: [] for key in calls}
     for _ in range(repeats):
         for key, fn in calls.items():
@@ -1611,6 +1785,12 @@ def kernels_against(others, dev, card, repeats=5):
             f"{name} {statistics.median(times[label, name]):.4f} "
             f"({min(times[label, name]):.4f}-{max(times[label, name]):.4f})"
             for name in libs))
+    for label, *_ in spreads:  # K4's call: its zeroing beside its kernel
+        for name in libs:
+            log(f"[{card}] {label} of {name}, device ms per call by "
+                "activity: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in
+                    device_by_kernel(calls[label, name]).items()))
 
 
 def time_kernels(record):
@@ -1666,6 +1846,29 @@ def time_kernels(record):
         r["bound_ms"], r["bound_by"] = b_ms, b_by
 
 
+def adjoint_step_only(dev, card, tag):
+    """The exact-adjoint step (SCFConfig()) of the admp_tpu_torch on
+    sys.path alone: ms/step (time_steps, after a cold step) and one profiler
+    window of 3 warm steps (profile_adjoint_<tag>.txt), logged."""
+    from admp_tpu_torch import SCFConfig
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    w = build_workload(dev)
+    force = make_force(w, True, dev, torch.float32, "auto", scf=SCFConfig())
+    force.get_forces(*pol_args(w, w["positions"], torch.float32))
+    ms, times, iters = time_steps(force, w)
+    wall, device_ms, n_kernels, top = profile_steps(
+        lambda n: run_steps(force, w, w["positions"], n), f"adjoint_{tag}")
+    log(f"[{card}] {tag}: exact-adjoint step {ms:.3f} ms/step "
+        f"({[round(t, 3) for t in times]}), warm PCG iterations "
+        f"{sorted(set(iters))}; profile (3 warm steps, profiler on): "
+        f"{wall:.3f} ms/step wall, {device_ms:.3f} ms/step device busy "
+        f"({100 * device_ms / wall:.1f}%), {n_kernels:.0f} device "
+        "kernels/step; top by device time:")
+    for key, ms_k, count in top:
+        log(f"  {ms_k:8.4f} ms/step  x{count:<4d} {key}")
+
+
 def ptxas_summary(text):
     """One line per kernel of an nvcc -Xptxas -v log: its name with its
     template arguments, registers and spill stores / loads (the log's own
@@ -1703,12 +1906,13 @@ def main():
         print("no CUDA device: chip_smoke.py runs only on the GPU",
               file=sys.stderr)
         return 1
-    # --launchers DIR: only the launcher host-us line, of the admp_tpu_torch
-    # in DIR (another commit's checkout, to compare in one run);
-    # --kernels DIR [DIR ...]: only the device times of K2, K5, K6 and K7,
+    # --launchers DIR: only the launcher host-us line, and --adjoint DIR only
+    # the exact-adjoint step's time and profile, of the admp_tpu_torch in DIR
+    # (another commit's checkout, to compare in one run);
+    # --kernels DIR [DIR ...]: only the device times of K2-K7,
     # this tree's beside each DIR's in one process
     mode = sys.argv[1] if len(sys.argv) > 2 else None
-    other = sys.argv[2] if mode == "--launchers" else None
+    other = sys.argv[2] if mode in ("--launchers", "--adjoint") else None
     sys.path.insert(0, other or str(ROOT))
     from admp_tpu_torch.ops.cuda import build
 
@@ -1717,12 +1921,16 @@ def main():
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
-    if other:
-        from admp_tpu_torch.ops.cuda import spread as S
-        build.build(("spread", "spread_tiled"))
+    if mode == "--launchers":
+        from admp_tpu_torch.ops.cuda import pairs as P, spread as S
+        build.build()
         log(f"[{card}] {S.__file__}: launcher host us per call: "
             + ", ".join(f"{k} {v:.2f}" for k, v in
-                        launcher_host_us(S, dev).items()))
+                        launcher_host_us(S, P, dev).items()))
+        return 0
+    if mode == "--adjoint":
+        build.build()
+        adjoint_step_only(dev, card, pathlib.Path(other).resolve().name)
         return 0
     if mode == "--kernels":
         kernels_against(sys.argv[2:], dev, card)
@@ -1771,6 +1979,7 @@ def main():
     check_hvp(w, record)
     check_spread(w, record)
     check_spread_c3(w, record)
+    check_spread_rows(dev)
     w98 = build_large(dev)
     check_spread_tiled(w98, record)
     log("phase 2: every kernel agrees with its plain version")
@@ -1833,6 +2042,7 @@ def main():
             "pair path]")
     for name, run in (
             ("md", lambda n: run_steps(force, w, w["positions"], n)),
+            ("adjoint", lambda n: run_steps(adj, w, w["positions"], n)),
             ("fullff", lambda n: run_ff(ff, w, n)),
             ("large", lambda n: run_large(large[K98]["auto"], w98, n))):
         wall, device_ms, n_kernels, top = profile_steps(run, name)
@@ -1843,10 +2053,10 @@ def main():
         for key, ms_k, count in top:
             log(f"  {ms_k:8.4f} ms/step  x{count:<4d} {key}")
     time_large_kernels(w98, card)
-    from admp_tpu_torch.ops.cuda import spread as S
+    from admp_tpu_torch.ops.cuda import pairs as P, spread as S
     log(f"phase 4 [{card}]: launcher host us per call: "
         + ", ".join(f"{k} {v:.2f}" for k, v in
-                    launcher_host_us(S, dev, parts=True).items()))
+                    launcher_host_us(S, P, dev, parts=True).items()))
     time_kernels(record)
     for name, r in record.items():
         lib = ("none" if r["library_ms"] is None

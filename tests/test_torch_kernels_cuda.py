@@ -23,11 +23,14 @@ not, with atoms outside the box, and K7 where its warps cross from one bin
 into the next beside empty bins; K5 on a crowded tile that holds more atoms
 than its stage (chunks, in a fixed order); the plain versions under
 gradcheck at float64; second-order pulls on the kernels; and 'auto' on a
-256^3 mesh launching K5/K7 and not K4/K6. K6 bit for bit on axes shorter
-than the stencil and on rows that wrap at K3, on a side stream, and the
-launchers' refusal of bases on another device. K2 and K3 also on tables
-crafted onto each branch of the pair energy (degenerate pairs, the frame
-guard, masked pairs, zero-pol sites, the pscale sigmoid, the Thole cut).
+256^3 mesh launching K5/K7 and not K4/K6. K6 bit for bit and K4 within
+1e-5 max|mesh| on axes shorter than the stencil and on rows that wrap at K3,
+both on a side stream, and the launchers' refusal of bases on another
+device; K4 at N = 0 (zeros) and through its C entry into a mesh filled with
+NaN (the entry zeroes its mesh). K3 on all seven (kind, lmax). K2 and K3
+also on tables crafted onto each branch of the pair energy (degenerate
+pairs, the frame guard, masked pairs, zero-pol sites, the pscale sigmoid,
+the Thole cut).
 """
 
 import numpy as np
@@ -124,6 +127,28 @@ def test_pair_kernels_match_plain(dev, kind, lmax):
     for name, a, b in zip(("g_i", "g_j", "scl", "scal"), out_k, out_p):
         assert bool(torch.isfinite(a).all()), name
         assert _rel(a, b) < 1e-5, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("kind,lmax", [("perm", 0), ("perm", 1), ("perm", 2),
+                                       ("pol", 0), ("pol", 1), ("pol", 2),
+                                       ("uu", 1)])
+def test_pair_hvp_matches_plain_f64(dev, kind, lmax):
+    """K3 (K2's mixed-mode body in one-tangent duals) against the plain HVP
+    in float64 on the same inputs, every output within max(1e-4, 2 x the
+    plain float32 version's error); one launch, counted for its kind."""
+    *x, ct = _tables(dev, kind, lmax)
+    cs = P.hvp_directions(x, kind, seed=7)
+    before = P.launch_pair_hvp.by_kind[kind]
+    out_k = P.launch_pair_hvp(*x, ct, *cs, lmax, kind)
+    assert P.launch_pair_hvp.by_kind[kind] - before == 1
+    out_64 = P.pair_hvp_torch(*(t.double() for t in (*x, ct, *cs)), lmax, kind)
+    out_32 = P.pair_hvp_torch(*x, ct, *cs, lmax, kind)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("g_i", "g_j", "scl", "scal", "ct"), out_k,
+                             out_32, out_64):
+        assert bool(torch.isfinite(a).all()), name
+        tol = max(1e-4, 2 * _rel(b, c))
+        assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
 
 
 def _branch_tables(dev, kind, lmax):
@@ -515,6 +540,81 @@ def test_gather_rows_on_short_and_wrapping_axes(dev, grid, order, channels):
     out = S.launch_gather(m_u0, mesh, grid, order)
     assert torch.equal(out, S.gather_torch(m_u0, mesh, grid, order))
     assert S.launch_gather.by_shape[order, channels] - before == 1
+
+
+@pytest.mark.parametrize("grid", [(5, 4, 7), (9, 7, 3), (20, 16, 37),
+                                  (12, 10, 12), (9, 7, 20)])
+@pytest.mark.parametrize("order,channels", [(6, 1), (6, 3), (4, 1), (4, 3)])
+def test_spread_rows_on_short_and_wrapping_axes(dev, grid, order, channels):
+    """K4 within 1e-5 max|mesh| of the plain spread on axes shorter than the
+    stencil (z by its remainder) and on stencil rows that wrap at K3 (z by
+    one compare; at K3 % 4 == 0, K3 >= 12, float4 windows that wrap whole,
+    down to K3 = 12); one launch per call, counted per (order, C)."""
+    rng = np.random.default_rng(17)
+    n = 300
+    bases = np.stack([rng.integers(-9, k + 9, n) for k in grid], 1)
+    bases[:20, 2] = grid[2] - 1  # these rows run past K3 and wrap
+    m_u0 = torch.tensor(bases, device=dev, dtype=torch.int32)
+    pts = torch.tensor(rng.standard_normal((n, channels, order ** 3)),
+                       device=dev, dtype=torch.float32)
+    before = S.launch_spread.by_shape[order, channels]
+    mesh_k = S.launch_spread(m_u0, pts, grid, order)
+    mesh_p = S.spread_torch(m_u0, pts, grid, order)
+    torch.cuda.synchronize()
+    assert float((mesh_k - mesh_p).abs().max()) <= 1e-5 * float(
+        mesh_p.abs().max())
+    assert S.launch_spread.by_shape[order, channels] - before == 1
+
+
+def test_spread_zeroes_and_launches_on_the_current_stream(dev):
+    """On a side stream K4's entry zeroes the mesh and launches after the
+    work enqueued there before it."""
+    grid = (40, 36, 48)
+    m_u0, pts = _tiled_stencil(dev, grid, 6, 1, 0)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.full((1, *grid), float("nan"), device=dev)  # a dirty block
+        scaled = pts * 3.0
+        mesh = S.launch_spread(m_u0, scaled, grid, 6)
+    side.synchronize()
+    mesh_p = S.spread_torch(m_u0, pts * 3.0, grid, 6)
+    assert float((mesh - mesh_p).abs().max()) <= 1e-5 * float(
+        mesh_p.abs().max())
+
+
+def test_spread_of_no_atoms_is_zeros(dev):
+    """K4's launcher at N = 0: a zero mesh (its C entry zeroes the buffer,
+    whatever the allocator hands back) and no launch counted."""
+    grid = (40, 36, 48)
+    for n_ch in (1, 3):
+        dirty = torch.full((n_ch, *grid), float("nan"), device=dev)
+        del dirty  # its block goes back to the caching allocator
+        before = S.launch_spread.by_shape[6, n_ch]
+        mesh = S.launch_spread(
+            torch.empty((0, 3), device=dev, dtype=torch.int32),
+            torch.empty((0, n_ch, 216), device=dev), grid, 6)
+        assert mesh.shape == (n_ch, *grid)
+        assert bool((mesh == 0).all())
+        assert S.launch_spread.by_shape[6, n_ch] == before
+
+
+@pytest.mark.parametrize("order,channels", [(6, 1), (4, 3)])
+def test_spread_entry_writes_over_a_nan_mesh(dev, order, channels):
+    """admp_spread, called directly, zeroes the mesh it is given before it
+    accumulates: a buffer filled with NaN comes back as the plain spread."""
+    grid = (40, 36, 48)
+    m_u0, pts = _tiled_stencil(dev, grid, order, channels, 1)
+    mesh = torch.full((channels, *grid), float("nan"), device=dev)
+    status = S._entry("admp_spread")(
+        *(S._P(t.data_ptr()) for t in (m_u0, pts, mesh)), m_u0.shape[0],
+        channels, order, *grid, S._P(S._raw_stream(mesh.get_device())))
+    assert status == 0
+    mesh_p = S.spread_torch(m_u0, pts, grid, order)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(mesh).all())
+    assert float((mesh - mesh_p).abs().max()) <= 1e-5 * float(
+        mesh_p.abs().max())
 
 
 def test_gather_launches_on_the_current_stream(dev):

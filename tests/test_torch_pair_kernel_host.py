@@ -6,10 +6,10 @@ K2's mixed-mode gradient body (``pair_grad_mixed`` at S = float) is held
 against autograd of the plain version ``pair_energies_torch`` in float32,
 every output within 1e-5 relative RMSE (the card's gate), for all seven
 (kind, lmax) on the cuda tests' tables and on the tables crafted onto each
-branch of the pair energy. Its S = Dual1 instantiation (the derivatives of
-its outputs along a direction, which K3 would take from it) is held against
-the plain HVP in float64 within max(1e-4, 2 x the plain float32 HVP's
-error), K3's own gate. Skips where no C++ compiler is found.
+branch of the pair energy. Its S = Dual1 instantiation, K3's body (the
+derivatives of its outputs along a direction), is held against the plain
+HVP in float64 within max(1e-4, 2 x the plain float32 HVP's error), K3's own
+gate, on both sets of tables. Skips where no C++ compiler is found.
 """
 
 import ctypes
@@ -150,12 +150,12 @@ def test_pair_backward_body_matches_autograd(host_lib, kind, lmax, which):
     assert bool((out_k[0][masked] == 0).all() and (out_k[1][masked] == 0).all())
 
 
-@pytest.mark.parametrize("kind,lmax", KINDS)
-def test_pair_backward_body_in_dual_arithmetic_gives_the_hvp(host_lib, kind,
-                                                              lmax):
-    tables = _tables_of("branches", kind, lmax)
+def _hold_dual_body(lib, kind, lmax, which):
+    """The S = Dual1 body (K3's) on the ``which`` tables against the plain
+    HVP in float64, within K3's gate."""
+    tables = _tables_of(which, kind, lmax)
     cs = P.hvp_directions(tables[:4], kind, seed=5)
-    out_k = _host_grad(host_lib, tables, lmax, kind, cs)
+    out_k = _host_grad(lib, tables, lmax, kind, cs)
     out_64 = P.pair_hvp_torch(*(t.double() for t in (*tables, *cs)), lmax, kind)
     out_32 = P.pair_hvp_torch(*tables, *cs, lmax, kind)
     for name, a, b, c in zip(("g_i", "g_j", "scl", "scal", "ct"), out_k, out_32,
@@ -163,3 +163,14 @@ def test_pair_backward_body_in_dual_arithmetic_gives_the_hvp(host_lib, kind,
         assert bool(torch.isfinite(a).all()), name
         tol = max(1e-4, 2 * _rel(b, c))
         assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
+
+
+@pytest.mark.parametrize("kind,lmax", KINDS)
+def test_pair_backward_body_in_dual_arithmetic_gives_the_hvp(host_lib, kind,
+                                                              lmax):
+    _hold_dual_body(host_lib, kind, lmax, "branches")
+
+
+@pytest.mark.parametrize("kind,lmax", KINDS)
+def test_pair_hvp_body_on_the_plain_tables(host_lib, kind, lmax):
+    _hold_dual_body(host_lib, kind, lmax, "plain")

@@ -7,8 +7,10 @@ admp_tpu ``SparseExclusions`` into the port's;
 or ``ADMPDispPmeForce`` that copies an admp_tpu force object's kappa, K1..K3,
 pmax and configuration, so the two packages compute the same thing.
 ``convert_params`` and ``adam_state_from_optax`` carry a fit across: a
-parameter dict, and the moments and step count of optax's Adam
-(``ScaleByAdamState``) as the state of ``torch.optim.Adam``. None of them
+parameter dict (an admp_tpu generator's ``params`` too), and the moments and
+step count of optax's Adam (``ScaleByAdamState``) as the state of
+``torch.optim.Adam``; ``md_state_from_jax`` carries a trajectory's
+``MDState`` across. None of them
 imports JAX or optax. Every array is copied, and everything lands on the card
 unless the caller asks for the CPU (``device='cpu'``).
 """
@@ -20,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from admp_tpu_torch.md import MDState
 from admp_tpu_torch.models.dispersion import ADMPDispPmeForce
 from admp_tpu_torch.models.pme import ADMPPmeForce
 from admp_tpu_torch.ops.cuda import resolve_device
@@ -153,11 +156,33 @@ def disp_force_from_jax(jax_force, box, device="cuda", dtype=torch.float64,
 
 
 def convert_params(params, device="cuda", dtype=torch.float64):
-    """A parameter dict of arrays -> leaf tensors that require grad, the
-    form fitting.fit and a torch.optim optimizer take."""
+    """A parameter dict of arrays (an admp_tpu generator's ``params`` as it
+    is, or any dict of numpy/JAX arrays) -> leaf tensors that require grad,
+    the form fitting.fit, a torch.optim optimizer and the port's generators
+    take."""
     device = resolve_device(device)
     return {k: _copy(v, device, dtype).requires_grad_(True)
             for k, v in params.items()}
+
+
+def md_state_from_jax(state, device="cuda", dtype=torch.float64):
+    """An admp_tpu ``MDState`` (positions, velocities, forces, aux) as the
+    port's ``md.MDState``: each array copied to ``device`` in ``dtype``; an
+    ``aux`` of None stays None, a tuple, list or dict of arrays is copied
+    leaf by leaf."""
+    device = resolve_device(device)
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(conv(v) for v in x)
+        return _copy(x, device, dtype)
+
+    return MDState(*(conv(x) for x in (state.positions, state.velocities,
+                                       state.forces)), conv(state.aux))
 
 
 def adam_state_from_optax(mu, nu, count, params):

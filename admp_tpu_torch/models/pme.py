@@ -1,11 +1,12 @@
 """Multipolar electrostatic PME with optional Thole polarization
 (admp_tpu/models/pme.py, plain precision).
 
-The class keeps admp_tpu's public surface: the constructor arguments,
-``refresh_calculators``, ``get_energy`` / ``get_forces`` / ``get_metrics`` /
-``optimize_Uind``, the ``U_ind`` / ``lconverg`` / ``n_cycle`` state and
-writable ``kappa`` / ``K1..K3`` (rebuild with ``refresh_calculators``). As
-there, ``get_forces`` returns (energy, dE/dpositions).
+The class keeps admp_tpu's public surface: the constructor arguments (with
+the compatibility keywords), ``update_env`` and ``refresh_calculators``,
+``get_energy`` / ``get_forces`` / ``get_metrics`` / ``optimize_Uind``, the
+``U_ind`` / ``W_adj`` / ``lconverg`` / ``n_cycle`` state and writable
+``kappa`` / ``K1..K3`` (rebuild with ``refresh_calculators``). As there,
+``get_forces`` returns (energy, dE/dpositions).
 
 The polarizable step follows admp_tpu's Feynman-Hellmann (FH) path
 (models/pme.py:969-1000): r0 = -field(u0) from ``torch.autograd.grad`` on
@@ -50,7 +51,7 @@ from admp_tpu_torch.ops.neighborlist import NeighborList
 from admp_tpu_torch.ops.reciprocal import make_pme_recip
 from admp_tpu_torch.ops.selfenergy import pme_self_energy, polarization_penalty
 from admp_tpu_torch.scf import solver
-from admp_tpu_torch.settings import EngineConfig
+from admp_tpu_torch.settings import EngineConfig, SCFConfig
 from admp_tpu_torch.utils.accmath import compensated_sum, masked_compensated_sum
 from admp_tpu_torch.utils.constants import DIELECTRIC
 from admp_tpu_torch.utils.linalg3 import inv3x3
@@ -264,12 +265,29 @@ class ADMPPmeForce:
     constructor raises, and the CPU is taken only when asked for
     (``device='cpu'``). The kernels run for ``dtype=torch.float32`` on a
     CUDA device (EngineConfig.pair_kernel / spread_method ``'auto'``).
+
+    ``scf_config``, ``fft_friendly_grid``, ``spread_method`` and
+    ``spread_precision`` are admp_tpu's compatibility keywords, folded into
+    ``config`` as there (admp_tpu/models/pme.py:645-657): without a
+    ``config`` they make one, and ``scf_config`` also replaces the SCF of a
+    given ``config``.
     """
 
     def __init__(self, box, axis_type, axis_indices, covalent_map, rc,
-                 ethresh, lmax, lpol=False, config: EngineConfig | None = None,
-                 device="cuda", dtype=torch.float32):
-        self.config = config or EngineConfig()
+                 ethresh, lmax, lpol=False, scf_config: SCFConfig | None = None,
+                 fft_friendly_grid: bool | str = "auto",
+                 spread_method: str = "auto",
+                 spread_precision: str | None = None,
+                 config: EngineConfig | None = None, device="cuda",
+                 dtype=torch.float32):
+        if config is None:
+            config = EngineConfig(fft_friendly_grid=fft_friendly_grid,
+                                  spread_method=spread_method,
+                                  spread_precision=spread_precision,
+                                  scf=scf_config or SCFConfig())
+        elif scf_config is not None:
+            config = dataclasses.replace(config, scf=scf_config)
+        self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype
         box_np = np.asarray(box.detach().cpu() if torch.is_tensor(box) else box,
@@ -299,6 +317,9 @@ class ADMPPmeForce:
                             else None)
         self.U_ind = torch.zeros((self.n_atoms, 3), device=self.device,
                                  dtype=dtype)
+        # the adjoint warm start, carried across get_forces calls like U_ind
+        # (zeros unless SCFConfig.adjoint_warmstart)
+        self.W_adj = torch.zeros_like(self.U_ind)
         self.lconverg = None
         self.n_cycle = None
         if self.lpol:
@@ -330,6 +351,12 @@ class ADMPPmeForce:
         if isinstance(pairs, np.ndarray):
             pairs = torch.from_numpy(np.array(pairs))
         return torch.as_tensor(pairs, device=self.device).long()
+
+    def update_env(self, attr, val):
+        """Set an attribute (kappa, K1..K3, ...) and rebuild the engines
+        (admp_tpu/models/pme.py:725-729)."""
+        setattr(self, attr, val)
+        self.refresh_calculators()
 
     def refresh_calculators(self):
         """(Re)build the reciprocal engines from kappa and K1..K3."""
@@ -436,44 +463,60 @@ class ADMPPmeForce:
 
         return matvec
 
-    def _energy_and_aux(self, inp, U_init, return_terms=False):
+    def _energy_and_aux(self, inp, U_init, return_terms=False, W_init=None):
         """Energy at the converged dipoles (with the autograd graph to any
-        input that requires grad) and (u*, converged, n_iter)."""
+        input that requires grad) and (u*, converged, n_iter, w). ``W_init``
+        (the carried ``W_adj``) engages the warm-started adjoint where the
+        configuration asks for it; without it the adjoint is cold and ``w``
+        is zeros, as admp_tpu's energy-only surfaces run it."""
         u0 = (self.U_ind if U_init is None else self._float(U_init)).detach()
         matvec_fn = self._matvec_fn(inp["pairs"])
         theta = [inp[k] for k in self._MATVEC_KEYS]
-        if self.scf_config.exact_adjoint:
+        scf = self.scf_config
+        inp_d = {k: v.detach() for k, v in inp.items()}
+        # the Jacobi method iterates on A u = b from b = -field(0)
+        rhs = (-self.field(torch.zeros_like(u0), inp_d)
+               if scf.method == "jacobi" else None)
+        if scf.exact_adjoint:
+            if W_init is None and scf.adjoint_warmstart:
+                scf = dataclasses.replace(scf, adjoint_warmstart=False)
             r0 = -self.field(u0, inp, create_graph=True)
-            u_star, conv, n_it = solver.solve_implicit(
-                r0, u0, inp["pol"], matvec_fn, self.scf_config, theta)
+            u_star, conv, n_it, w = solver.solve_implicit(
+                r0, u0, inp["pol"], matvec_fn, scf, theta, rhs=rhs,
+                w_init=W_init)
         else:
             # FH cut: the solve contributes no gradient
-            inp_d = {k: v.detach() for k, v in inp.items()}
             theta_d = [t.detach() for t in theta]
             r0 = -self.field(u0, inp_d)
             u_star, conv, n_it, _ = solver.solve(
                 lambda v: matvec_fn(v, theta_d, False), r0, u0, inp["pol"],
-                self.scf_config)
+                scf, rhs)
+            w = torch.zeros_like(u0)
         out = self.energy_fn(inp, u_star, return_terms=return_terms)
-        return out, (u_star.detach(), conv, n_it)
+        return out, (u_star.detach(), conv, n_it, w)
 
     def _pol_energy(self, positions, box, pairs, Q_local, pol, tholes,
                     mScales, pScales, dScales, U_init=None):
         inp = self._inputs(positions, box, pairs, Q_local, pol, tholes,
                            mScales, pScales, dScales)
-        energy, (u, conv, n_it) = self._energy_and_aux(inp, U_init)
+        energy, (u, conv, n_it, _) = self._energy_and_aux(inp, U_init)
         self.U_ind, self.lconverg, self.n_cycle = u, conv, n_it
         return energy
 
     def _pol_forces(self, positions, box, pairs, Q_local, pol, tholes,
                     mScales, pScales, dScales, U_init=None):
+        """(energy, dE/dpositions); carries ``U_ind`` and, under
+        ``adjoint_warmstart``, the adjoint warm start ``W_adj`` to the next
+        call (admp_tpu/models/pme.py:1050-1065)."""
         inp = self._inputs(positions, box, pairs, Q_local, pol, tholes,
                            mScales, pScales, dScales)
         inp["positions"] = inp["positions"].detach().requires_grad_(True)
         with torch.enable_grad():
-            energy, (u, conv, n_it) = self._energy_and_aux(inp, U_init)
+            energy, (u, conv, n_it, w) = self._energy_and_aux(
+                inp, U_init, W_init=self.W_adj)
             (grad,) = torch.autograd.grad(energy, inp["positions"])
         self.U_ind, self.lconverg, self.n_cycle = u, conv, n_it
+        self.W_adj = w
         return energy.detach(), grad
 
     def _pol_metrics(self, positions, box, pairs, Q_local, pol, tholes,
@@ -482,7 +525,7 @@ class ADMPPmeForce:
         inp = self._inputs(positions, box, pairs, Q_local, pol, tholes,
                            mScales, pScales, dScales)
         inp = {k: v.detach() for k, v in inp.items()}
-        (total, terms), (u, conv, n_it) = self._energy_and_aux(
+        (total, terms), (u, conv, n_it, _) = self._energy_and_aux(
             inp, U_init, return_terms=True)
         terms = {k: v.detach() for k, v in terms.items()}
         return dict(terms, e_total=total.detach(), scf_converged=conv,
@@ -498,4 +541,4 @@ class ADMPPmeForce:
         if U_init is None:
             U_init = torch.zeros_like(self.U_ind)
         _, aux = self._energy_and_aux(inp, U_init)
-        return aux
+        return aux[:3]

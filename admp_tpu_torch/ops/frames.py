@@ -10,9 +10,11 @@ Axis type codes follow MPID/OpenMM:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from admp_tpu_torch.utils.linalg3 import inv3x3
+from admp_tpu_torch.utils.safety import safe_normalize
 
 ZTHENX = 0
 BISECTOR = 1
@@ -111,3 +113,48 @@ def local_frames_components(positions, box, axis_types, axis_indices):
         torch.where(is_noaxis, zero, zy),
         torch.where(is_noaxis, one, zz),
     )
+
+
+def construct_local_frames(positions, box, axis_types, axis_indices):
+    """Per-site local frames as (N, 3, 3) rotation matrices, local axes in
+    rows (x, y, z): ``v_local = frames @ v_global``. ``axis_indices`` (N, 3)
+    holds the (z, x, y) anchors, -1 where absent."""
+    f = local_frames_components(positions, box,
+                                _on(axis_types, positions.device),
+                                _on(axis_indices, positions.device))
+    return torch.stack(f, dim=-1).reshape(-1, 3, 3)
+
+
+def _on(x, device):
+    """An index array (numpy, list or tensor) as a tensor on ``device``."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+def make_frame_constructor(axis_types, axis_indices):
+    """``construct(positions, box) -> frames`` closed over the per-system
+    axis data (the reference's factory form)."""
+
+    def _construct(positions, box):
+        return construct_local_frames(positions, box, axis_types,
+                                      axis_indices)
+
+    return _construct
+
+
+def build_quasi_internal(r1, r2, dr, norm_dr):
+    """Per-pair quasi-internal frames (..., 3, 3), rows (x, y, z), z along
+    the wrapped displacement ``dr`` = r1 - r2 of norm ``norm_dr``. The seed
+    of x is unit y where r1 and r2 share their y and z (compared unwrapped,
+    as the reference does), else unit x."""
+    vec_z = dr / norm_dr[..., None]
+    degenerate = ((r1[..., 1] == r2[..., 1])
+                  & (r1[..., 2] == r2[..., 2]))[..., None]
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=dr.dtype, device=dr.device)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=dr.dtype, device=dr.device)
+    vec_x = vec_z + torch.where(degenerate, ey, ex)
+    vec_x = vec_x - vec_z * torch.sum(vec_z * vec_x, dim=-1, keepdim=True)
+    vec_x = safe_normalize(vec_x)
+    vec_y = torch.cross(vec_z, vec_x, dim=-1)
+    return torch.stack([vec_x, vec_y, vec_z], dim=-2)

@@ -36,6 +36,29 @@ def _cart2harm_matrix(lmax: int) -> np.ndarray:
     return m
 
 
+def _harm2cart_matrix(lmax: int) -> np.ndarray:
+    """Constant (n_cart, n_harm) matrix: the inverse of _cart2harm_matrix on
+    the traceless subspace."""
+    n_harm = (lmax + 1) ** 2
+    n_cart = {0: 1, 1: 4, 2: 10}[lmax]
+    m = np.zeros((n_cart, n_harm))
+    m[0, 0] = 1.0
+    if lmax >= 1:
+        m[1, 2] = 1.0
+        m[2, 3] = 1.0
+        m[3, 1] = 1.0
+    if lmax >= 2:
+        m[4, 4] = -0.5
+        m[4, 7] = RT3 / 2.0
+        m[5, 4] = -0.5
+        m[5, 7] = -RT3 / 2.0
+        m[6, 4] = 1.0
+        m[7, 8] = RT3 / 2.0
+        m[8, 5] = RT3 / 2.0
+        m[9, 6] = RT3 / 2.0
+    return m
+
+
 def convert_cart2harm(theta, lmax: int):
     """(..., n_cart) Cartesian multipoles -> (..., (lmax+1)**2) harmonics;
     trailing components beyond what ``lmax`` needs are ignored."""
@@ -45,6 +68,70 @@ def convert_cart2harm(theta, lmax: int):
     mat = torch.as_tensor(_cart2harm_matrix(lmax), dtype=theta.dtype,
                           device=theta.device)
     return theta[..., :n_cart] @ mat.T
+
+
+def convert_harm2cart(q, lmax: int):
+    """(..., (lmax+1)**2) harmonics -> Cartesian multipoles (traceless
+    quadrupole)."""
+    if lmax > 2:
+        raise NotImplementedError("l > 2 (beyond quadrupole) not supported")
+    mat = torch.as_tensor(_harm2cart_matrix(lmax), dtype=q.dtype,
+                          device=q.device)
+    return q @ mat.T
+
+
+def quad_harm_to_tensor(q2):
+    """(..., 5) l=2 harmonic components -> (..., 3, 3) traceless symmetric
+    tensor."""
+    q20, q21c, q21s, q22c, q22s = (q2[..., k] for k in range(5))
+    h = RT3 / 2.0
+    xx = -0.5 * q20 + h * q22c
+    yy = -0.5 * q20 - h * q22c
+    xy, xz, yz = h * q22s, h * q21c, h * q21s
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
+                        torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, q20], dim=-1)], dim=-2)
+
+
+def quad_tensor_to_harm(t):
+    """(..., 3, 3) traceless symmetric tensor -> (..., 5) l=2 harmonics."""
+    inv = 2.0 / RT3
+    return torch.stack([t[..., 2, 2], inv * t[..., 0, 2], inv * t[..., 1, 2],
+                        (t[..., 0, 0] - t[..., 1, 1]) / RT3,
+                        inv * t[..., 0, 1]], dim=-1)
+
+
+def _rotate_harm(q, rot, lmax: int):
+    """Harmonic multipoles rotated by (..., 3, 3) matrices ``rot`` acting on
+    Cartesian vectors as v' = rot @ v: d' = R d, T' = R T R^T."""
+    parts = [q[..., 0:1]]
+    if lmax >= 1:
+        d_rot = torch.einsum("...ij,...j->...i", rot, harm_dipole_to_cart(
+            q[..., 1:4]))
+        parts.append(cart_dipole_to_harm(d_rot))
+    if lmax >= 2:
+        t = quad_harm_to_tensor(q[..., 4:9])
+        t_rot = torch.einsum("...ij,...jk,...lk->...il", rot, t, rot)
+        parts.append(quad_tensor_to_harm(t_rot))
+    return torch.cat(parts, dim=-1)
+
+
+def rot_global2local(q_global, frames, lmax: int = 2):
+    """Harmonic multipoles from the global frame into per-site local frames
+    (``frames`` (..., 3, 3), local axes in rows)."""
+    return _rotate_harm(q_global, frames, lmax)
+
+
+def rot_local2global(q_local, frames, lmax: int = 2):
+    """The inverse of :func:`rot_global2local`."""
+    return _rotate_harm(q_local, frames.transpose(-2, -1), lmax)
+
+
+def rot_dipole_global2local(u_harm, frames):
+    """Bare harmonic-ordered dipoles (z, x, y) from the global frame into
+    the local frames."""
+    d_rot = torch.einsum("...ij,...j->...i", frames, harm_dipole_to_cart(u_harm))
+    return cart_dipole_to_harm(d_rot)
 
 
 def rotate_harm_components(q, f, lmax: int):
@@ -96,6 +183,11 @@ def rotate_harm_components(q, f, lmax: int):
 def cart_dipole_to_harm(u_cart):
     """Cartesian dipoles (x, y, z) -> harmonic order (z, x, y)."""
     return torch.stack([u_cart[..., 2], u_cart[..., 0], u_cart[..., 1]], dim=-1)
+
+
+def harm_dipole_to_cart(u_harm):
+    """Harmonic-ordered dipoles (z, x, y) -> Cartesian (x, y, z)."""
+    return torch.stack([u_harm[..., 1], u_harm[..., 2], u_harm[..., 0]], dim=-1)
 
 
 def rot_local2global_components(q_local, frame_comps, lmax: int = 2):

@@ -41,13 +41,16 @@ def _not_implemented(what: str, item: str):
 class SCFConfig:
     """Induced-dipole solver configuration (admp_tpu/settings.py:71-166).
 
-    The port implements warm-started PCG with the Jacobi preconditioner,
-    ``fixed_iters``, the exact implicit-function adjoint
-    (``exact_adjoint=True``, with ``adjoint_tol`` and
-    ``adjoint_fixed_iters``), Feynman-Hellmann gradients
-    (``exact_adjoint=False``) and the reduced-cost matvec mesh
-    (``matvec_spread_order``, ``matvec_grid_div``), on the plain path and on
-    the CUDA kernels alike.
+    method: ``'pcg'`` (warm-started PCG with the Jacobi preconditioner) or
+    ``'jacobi'`` (the reference's damped iteration, for cross-validation;
+    it may diverge where PCG converges). Also ``fixed_iters``, the exact
+    implicit-function adjoint (``exact_adjoint=True``, with ``adjoint_tol``
+    and ``adjoint_fixed_iters``), Feynman-Hellmann gradients
+    (``exact_adjoint=False``), the reduced-cost matvec mesh
+    (``matvec_spread_order``, ``matvec_grid_div``) and the warm-started
+    adjoint (``adjoint_warmstart``: the forward solve pre-solves the adjoint
+    system from the carried ``ADMPPmeForce.W_adj`` and the backward refines
+    from it), on the plain path and on the CUDA kernels alike.
     """
 
     method: str = "pcg"
@@ -63,10 +66,9 @@ class SCFConfig:
     adjoint_warmstart: bool = False
 
     def __post_init__(self):
-        if self.method != "pcg":
-            _not_implemented(f"SCFConfig.method={self.method!r}", "queue 1, S7")
-        if self.adjoint_warmstart:
-            _not_implemented("SCFConfig.adjoint_warmstart", "queue 1, S7")
+        if self.method not in ("pcg", "jacobi"):
+            raise ValueError(
+                f"SCFConfig.method={self.method!r}: 'pcg' or 'jacobi'")
 
     @staticmethod
     def md():

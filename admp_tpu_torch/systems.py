@@ -5,10 +5,9 @@ arguments. A copy rather than an import, because admp_tpu imports JAX.
 
 from __future__ import annotations
 
-from collections import defaultdict, deque
-
 import numpy as np
 
+from admp_tpu_torch.io.topology import build_covalent_map_from_bonds
 from admp_tpu_torch.ops.exclusions import build_sparse_exclusions
 from admp_tpu_torch.ops.frames import BISECTOR, ZTHENX
 
@@ -30,30 +29,6 @@ MPID_WATER = dict(
     b_O=2.00095977, b_H=1.999519942,
     a_O=458.3777, a_H=0.0317,
 )
-
-
-def build_covalent_map_from_bonds(bonds, n_atoms: int, max_depth: int = 6):
-    """Dense (N, N) topological-distance matrix by BFS up to ``max_depth``;
-    0 means more than max_depth bonds apart (or the same atom)."""
-    adj = defaultdict(list)
-    for i, j in bonds:
-        adj[i].append(j)
-        adj[j].append(i)
-    cov = np.zeros((n_atoms, n_atoms), dtype=np.int32)
-    for start in adj:
-        seen = {start: 0}
-        queue = deque([start])
-        while queue:
-            cur = queue.popleft()
-            d = seen[cur]
-            if d >= max_depth:
-                continue
-            for nxt in adj[cur]:
-                if nxt not in seen:
-                    seen[nxt] = d + 1
-                    cov[start, nxt] = d + 1
-                    queue.append(nxt)
-    return cov
 
 
 def _exclusions(kind, bonds, n_atoms):

@@ -20,11 +20,13 @@ Phases (any failure exits nonzero; no phase failure is caught):
      1000 waters (3000 atoms, lmax=2, rc 4 A, ethresh 1e-4, K3=128, the MD
      SCF profile), one cold step and 10 warm drift steps, plus one
      fixed-multipole step; launch counts; the first step against the plain
-     path in f32 and in f64 on the card;
+     path in f32 and in f64 on the card; one step with the damped Jacobi SCF
+     (5 iterations), its dipoles on the kernels against plain f32;
   3b. the exact-adjoint path (default SCFConfig(): implicit adjoint,
      field_tol 10, order-6 full-resolution matvec mesh): one cold and 10 warm
      drift steps, launch counts (K3 for pol and uu), the first step against
-     the plain path in f32 and f64;
+     the plain path in f32 and f64; the warm-started adjoint
+     (adjoint_warmstart) against the cold one over the same drift steps;
   3c. parameter gradients dE/dQ_local, dE/dpol, dE/dtholes, dE/dmScales and
      dE/dpScales on the kernels against the plain path in f64;
   3d. the trainer: 3 fitting.fit steps of energy matching on the exact-adjoint
@@ -45,11 +47,29 @@ Phases (any failure exits nonzero; no phase failure is caught):
      and K1/K2 perm 11 launches each, K4/K6 none); the first step against
      the plain path in f32 and f64, again at --k 256, and under
      spread_method='cuda' (K4/K6);
+  3g. the XML/PDB front end: the MPID water XML and a PDB of the main path's
+     box written to a temporary directory, Hamiltonian(xml, device='cuda')
+     and createPotential(pdb, nonbondedCutoff=4.0) (ethresh 1e-5: 171^3
+     meshes), cell-list pairs; the assembled system equals water_system's,
+     each potential equals the same energy from the force objects (kernels
+     1e-6; plain f32: energy 1e-5, forces 1e-4), its parameter gradients
+     within 2x the plain f32 error + 1e-6 of plain f64, K1-K3 and K4/K6 at
+     (6, 1) and (6, 3) launched, and K4/K6 on the 171^3 meshes against
+     their plain versions;
+  3h. MD (examples/run_npt.py at --nmol 1000): fixed multipoles,
+     Tang-Toennies and bonded water, the influence grid following the box,
+     a cell list with a 1 A skin; 50 NVE steps from Maxwell velocities on the
+     kernels and on the plain f64 path (|dE_total| < 2% of KE), then three
+     NPT segments (20 Langevin steps, a refresh, one MC barostat move), with
+     launch counts per segment;
   4. timing: ms/step of the MD step (median of 3 x 10 steps, CUDA events), of
-     the exact-adjoint step and of the full-force-field step, ms per fitting
-     step, ms/step of the 98k step on K5/K7, on K4/K6 and plain at 320^3 and
-     256^3 (median of 3 x 5 steps), one profiler window each of the MD,
-     exact-adjoint, full-force-field and 98k steps, and each kernel beside
+     the exact-adjoint step (also with adjoint_warmstart) and of the
+     full-force-field step, ms per fitting step, ms/step of the 98k step on
+     K5/K7, on K4/K6 and plain at 320^3 and 256^3 (median of 3 x 5 steps),
+     ms per NPT Langevin step (kernels, plain), ms per Hamiltonian
+     energy+force (both potentials, kernels and plain), K4/K6 on the front
+     end's 171^3 meshes, one profiler window each of the MD, exact-adjoint,
+     full-force-field, 98k and NPT Langevin steps, and each kernel beside
      its plain version, its bound on the card and, where one exists, the one
      PyTorch call that computes the same function (at the 98k shapes too),
      and the host us per call of the launchers of K1-K6 (K4 beside one
@@ -152,6 +172,23 @@ N98_TIME_STEPS = 5
 # two f32 summation orders differ by at this size (1.16e-4 measured)
 TOL_E98 = 1e-6
 TOL_STEP_F98 = 2e-4
+
+# the Jacobi SCF step: its dipoles after this many iterations (field_tol 0,
+# so none stops early), kernel path against plain f32
+N_JACOBI = 5
+# phase 3g: the front end on the main path's box. Its generators' ethresh
+# gives 171^3 meshes; the Hamiltonian's potentials against the same energies
+# built from the force objects, both on the kernels, relative
+FE_ETHRESH = 1e-5
+TOL_FE = 1e-6
+# phase 3h: examples/run_npt.py at --nmol 1000. NVE: |dE_total| within
+# TOL_NVE of the starting kinetic energy (admp_tpu's own gate,
+# tests/test_md_fitting.py:59-61); NPT: Langevin segments, a neighbor-list
+# refresh, one MC barostat move each
+MD_JITTER = 0.05
+NVE_STEPS, NVE_DT, TOL_NVE = 50, 5e-5, 0.02
+NPT_SEGMENTS, NPT_STEPS, NPT_DT = 3, 20, 2e-4
+TEMPERATURE, FRICTION, PRESSURE_BAR, MAX_DLNV = 300.0, 10.0, 1.0, 0.02
 
 # the card's published peaks (H100 SXM, at the full 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -271,6 +308,99 @@ def pol_args(w, positions, dtype):
     return (c(positions), c(w["box"]), w["pairs"], c(w["q_local"]),
             c(w["pol"]), c(w["tholes"]), c(w["scales"]), c(w["scales"]),
             c(w["scales"]))
+
+
+# ---------------------------------------------------------------------------
+# the front end's input files (phase 3g; the CPU tests use them too)
+# ---------------------------------------------------------------------------
+
+# The MPID water model of admp_tpu_torch/systems.py MPID_WATER in the units of
+# its force-field XML: multipoles nm-based (the front end scales dipoles by
+# 10 and quadrupoles by 300), polarizabilities in nm^3 (x1000), Thole widths;
+# Tang-Toennies A in kJ/mol (the front end divides by 2625.5), B in 1/nm
+# (x0.0529177249), C6, C8, C10 as the squares of the engine's sqrt
+# coefficients over 1e6, 1e8, 1e10. O is type 380 (bisector frame of its two
+# H), H type 381 (z to O, x to the other H).
+WATER_XML_MULTIPOLES = {
+    "380": dict(c0=-1.0614, dZ=-0.023671684, qXX=0.000150963, qYY=0.00008707,
+                qZZ=-0.000238034, kz="381", kx="-381"),
+    "381": dict(c0=0.5307, kz="380", kx="381"),
+}
+WATER_XML_POL = {"380": dict(pol=0.00088, thole=8.0)}
+WATER_XML_DISP = {  # (a Hartree, b 1/Bohr, q, sqrt C6, sqrt C8, sqrt C10)
+    "380": (458.3777, 2.00095977, -0.741706, 37.19677405, 85.26810658,
+            134.44874488),
+    "381": (0.0317, 1.999519942, 0.370853, 7.6111103, 11.90220148,
+            15.05074749),
+}
+
+
+def water_ff_xml():
+    """The MPID water force field as an XML document (a str): residue HOH
+    with its two O-H bonds, an <ADMPDispForce> and an <ADMPPmeForce>
+    (lmax 2, polarizable), scale factors 0 0 0 1 1."""
+    def scales(prefixes):
+        return "".join(f' {p}Scale1{i}="{v}"' for p in prefixes
+                       for i, v in zip(range(2, 7), (0, 0, 0, 1, 1)))
+
+    disp = "".join(
+        f'    <Atom type="{t}" A="{a * 2625.5!r}" B="{b / 0.0529177249!r}" '
+        f'Q="{q!r}" C6="{c6 * c6 / 1e6!r}" C8="{c8 * c8 / 1e8!r}" '
+        f'C10="{c10 * c10 / 1e10!r}"/>\n'
+        for t, (a, b, q, c6, c8, c10) in WATER_XML_DISP.items())
+    pme = ""
+    for t, m in WATER_XML_MULTIPOLES.items():
+        attrs = " ".join(f'{k}="{v}"' for k, v in m.items())
+        pme += f'    <Atom type="{t}" {attrs}/>\n'
+    for t, p in WATER_XML_POL.items():
+        pme += (f'    <Polarize type="{t}" polarizabilityXX="{p["pol"]}" '
+                f'polarizabilityYY="{p["pol"]}" polarizabilityZZ="{p["pol"]}" '
+                f'thole="{p["thole"]}"/>\n')
+    return (
+        "<ForceField>\n"
+        " <AtomTypes>\n"
+        '  <Type name="380" class="OW" element="O" mass="15.999"/>\n'
+        '  <Type name="381" class="HW" element="H" mass="1.008"/>\n'
+        " </AtomTypes>\n"
+        " <Residues>\n"
+        '  <Residue name="HOH">\n'
+        '   <Atom name="O" type="380"/>\n'
+        '   <Atom name="H1" type="381"/>\n'
+        '   <Atom name="H2" type="381"/>\n'
+        '   <Bond from="0" to="1"/>\n'
+        '   <Bond from="0" to="2"/>\n'
+        "  </Residue>\n"
+        " </Residues>\n"
+        f" <ADMPDispForce{scales('m')}>\n{disp}"
+        " </ADMPDispForce>\n"
+        f' <ADMPPmeForce lmax="2" pmax="10"{scales("mpd")}>\n{pme}'
+        " </ADMPPmeForce>\n"
+        "</ForceField>\n")
+
+
+def water_pdb(positions, box):
+    """A PDB (a str) of waters laid out (O, H1, H2) in an orthorhombic box:
+    CRYST1, one HOH residue per molecule (at most 9,999), END."""
+    names = ("O", "H1", "H2")
+    require(len(positions) <= 3 * 9999, "too many waters for a PDB")
+    lines = ["CRYST1%9.3f%9.3f%9.3f%7.2f%7.2f%7.2f P 1           1"
+             % (box[0][0], box[1][1], box[2][2], 90.0, 90.0, 90.0)]
+    for k, p in enumerate(positions):
+        lines.append(
+            "HETATM%5d %-4s HOH A%4d    %8.3f%8.3f%8.3f  1.00  0.00"
+            "           %s" % (k + 1, names[k % 3], k // 3 + 1, p[0], p[1],
+                               p[2], names[k % 3][0]))
+    return "\n".join(lines + ["END"]) + "\n"
+
+
+def write_water_inputs(directory, positions, box):
+    """Write the MPID water XML and a PDB of ``positions`` in ``box`` into
+    ``directory``; returns (xml path, pdb path)."""
+    directory = pathlib.Path(directory)
+    xml, pdb = directory / "mpid_water.xml", directory / "water.pdb"
+    xml.write_text(water_ff_xml())
+    pdb.write_text(water_pdb(np.asarray(positions), np.asarray(box)))
+    return str(xml), str(pdb)
 
 
 # ---------------------------------------------------------------------------
@@ -627,6 +757,30 @@ def main_path(w, record):
     require(de < TOL_STEP_E, f"kernel vs plain f32 energy {de}")
     require(df < TOL_STEP_F, f"kernel vs plain f32 forces {df}")
     require(df64 < TOL_F64, f"kernel f32 vs plain f64 forces {df64}")
+
+    # one step with the damped Jacobi SCF: the iterates, not convergence
+    # (the reference's Jacobi diverged on its own configuration)
+    from admp_tpu_torch import SCFConfig
+
+    scf = SCFConfig(method="jacobi", max_iter=N_JACOBI, field_tol=0.0)
+    out = {}
+    for method in ("auto", "torch"):
+        jac = make_force(w, True, dev, torch.float32, method, scf=scf)
+        reset_counts()
+        e_j, g_j = jac.get_forces(*pol_args(w, w["positions"], torch.float32))
+        counts = read_counts()
+        out[method] = (e_j, g_j, jac.U_ind, jac.n_cycle, counts)
+    (e_k, g_k, u_k, n_k, c_k), (e_p, g_p, u_p, n_p, _) = (out["auto"],
+                                                          out["torch"])
+    du = rel_rmse(u_k, u_p)
+    log(f"Jacobi step ({N_JACOBI} iterations): U_ind kernel vs plain f32 rel "
+        f"RMSE {du:.3e}, energy {float(e_k):.6f} vs {float(e_p):.6f}, force "
+        f"rel RMSE {rel_rmse(g_k, g_p):.3e}, iterations {n_k} / {n_p}; "
+        f"max|U_ind| {float(u_p.abs().max()):.4f}; launches K1 "
+        f"{c_k['pair_fwd']}, K2 {c_k['pair_bwd']}, K3 {c_k['pair_hvp']}")
+    require(n_k == n_p == N_JACOBI, f"Jacobi iterations {n_k}, {n_p}")
+    require(bool(torch.isfinite(u_k).all()), "Jacobi dipoles not finite")
+    require(du < TOL_STEP_F, f"Jacobi dipoles kernel vs plain f32 {du}")
     return force, plain32
 
 
@@ -705,6 +859,26 @@ def adjoint_path(w, record):
     require(df < TOL_ADJ_F, f"exact adjoint forces vs plain f32 {df}")
     require(df64 < TOL_F64, f"exact adjoint forces vs plain f64 {df64}")
 
+    # the warm-started adjoint (adjoint_warmstart=True) against the cold one
+    # over the same drift steps, both on the kernels from the same start
+    import dataclasses
+
+    warm = make_force(w, True, dev, torch.float32, "auto",
+                      scf=dataclasses.replace(scf, adjoint_warmstart=True))
+    cold = make_force(w, True, dev, torch.float32, "auto", scf=scf)
+    p, errs = w["positions"], []
+    for _ in range(1 + N_STEPS):
+        _, g_c = cold.get_forces(*pol_args(w, p, torch.float32))
+        _, g_w = warm.get_forces(*pol_args(w, p, torch.float32))
+        errs.append(rel_rmse(g_w, g_c))
+        p = p + w["drift"]
+    log(f"adjoint_warmstart: forces vs the cold exact adjoint over 1 + "
+        f"{N_STEPS} drift steps, rel RMSE max {max(errs):.3e} "
+        f"({[f'{e:.1e}' for e in errs]}); max|W_adj| "
+        f"{float(warm.W_adj.abs().max()):.4e}")
+    require(max(errs) < TOL_ADJ_F, f"adjoint_warmstart forces {max(errs)}")
+    require(float(warm.W_adj.abs().max()) > 0.0, "W_adj was not carried")
+
     # 3c: dE/d(Q_local, pol, tholes, mScales, pScales) through get_energy,
     # cold-started; the two scales reach K2's dscl rows
     names = ("Q_local", "pol", "tholes", "mScales", "pScales")
@@ -726,7 +900,7 @@ def adjoint_path(w, record):
             f"f32 vs plain f64 {err_32:.3e}")
         require(bool(torch.isfinite(g_k).all()), f"dE/d{nm} not finite")
         require(err_k <= 2 * err_32 + 1e-6, f"dE/d{nm} {err_k} > 2 x {err_32}")
-    return force, plain32
+    return force, plain32, warm
 
 
 def fitting_path(w, record):
@@ -961,6 +1135,458 @@ def ff_path(w, record):
             "c_list fit: the C=3 kernels never launched")
     fit_ms = {m: [1e3 * h["dt"] for h in runs[m].history] for m in runs}
     return kern, plain32, fit_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the XML/PDB front end
+# ---------------------------------------------------------------------------
+
+
+def hamiltonian(xml, pdb, device, dtype, plain=False):
+    """The front end: Hamiltonian(xml) on ``device`` in ``dtype`` (no
+    reference-dipole file), its potentials for ``pdb`` at rc 4 A. With
+    ``plain`` its force objects are switched to the plain path after
+    assembly (the front end has no such option: this is the comparison's
+    own doing)."""
+    import dataclasses
+
+    from admp_tpu_torch import Hamiltonian
+
+    ham = Hamiltonian(xml, device=device, dtype=dtype)
+    ham.getGenerators()[1].ref_dip = ""
+    pots = ham.createPotential(pdb, nonbondedCutoff=RC)
+    if plain:
+        for gen in ham.getGenerators():
+            f = getattr(gen, "pme_force", None) or gen.disp_pme_force
+            f.config = dataclasses.replace(f.config, pair_kernel="torch",
+                                           spread_method="torch")
+            f.refresh_calculators()
+    return ham, pots
+
+
+def direct_potentials(w, dtype, method):
+    """The front end's two potentials built from the force objects and
+    water_system's arrays: Tang-Toennies minus dispersion PME, and the
+    polarizable multipolar PME (cold SCF, exact adjoint), at ethresh 1e-5."""
+    from admp_tpu_torch import (
+        ADMPDispPmeForce,
+        ADMPPmeForce,
+        EngineConfig,
+        generate_pairwise_interaction,
+        tt_damping_qq_c6_kernel,
+    )
+
+    s, dev = w["sys"], w["positions"].device
+    c = lambda x: torch.as_tensor(x, device=dev, dtype=dtype)  # noqa: E731
+    cfg = EngineConfig(pair_kernel=method, spread_method=method)
+    disp = ADMPDispPmeForce(s["box"], s["covalent_map"], RC, FE_ETHRESH, PMAX,
+                            config=cfg, device=dev, dtype=dtype)
+    pme = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                       s["covalent_map"], RC, FE_ETHRESH, LMAX, lpol=True,
+                       config=cfg, device=dev, dtype=dtype)
+    tt = generate_pairwise_interaction(tt_damping_qq_c6_kernel,
+                                       s["covalent_map"], device=dev)
+    c_list, sc = c(s["c_list"]), c(w["scales"])
+    tt_args = [c(s[k]) for k in ("tt_a", "tt_b", "tt_q")] + [c_list[:, 0]]
+    q_local, pol, tholes = c(w["q_local"]), c(s["pol"]), c(s["tholes"])
+
+    def e_disp(pos, box, pairs):
+        return (tt(pos, box, pairs, sc, *tt_args)
+                - disp.get_energy(pos, box, pairs, c_list, sc))
+
+    def e_pme(pos, box, pairs):
+        return pme.get_energy(pos, box, pairs, q_local, pol, tholes, sc, sc,
+                              sc, U_init=torch.zeros_like(pos))
+
+    return (e_disp, e_pme), pme
+
+
+def potential_grads(pot, gen, w, dtype):
+    """(energy, dE/dpositions, {name: dE/dparam}) of one front-end potential
+    at the workload's positions and cell-list pairs, params as leaves."""
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in gen.params.items()}
+    pos = w["positions"].to(dtype).detach().requires_grad_(True)
+    e = pot(pos, w["box"].to(dtype), w["ff_pairs"], params)
+    names = list(params)
+    grads = torch.autograd.grad(e, [pos] + [params[k] for k in names],
+                                allow_unused=True)
+    return e.detach(), grads[0], {
+        k: torch.zeros_like(params[k]) if g is None else g
+        for k, g in zip(names, grads[1:])}
+
+
+def check_spread_171(w, grids):
+    """K4/K6 on the front end's meshes (171^3: odd K3, so K4 takes its scalar
+    rounds; the three-channel mesh is larger than the card's L2) against
+    their plain versions; returns the stencils for the timings."""
+    from admp_tpu_torch.ops.cuda import spread as S
+    from admp_tpu_torch.ops.reciprocal import multi_stencil
+
+    out = {}
+    for (order, n_ch), grid in grids.items():
+        if n_ch == 1:
+            m_u0, q = spread_inputs(dict(w, grid=grid))
+        else:
+            m_u0, q = multi_stencil(w["positions"], w["box"], w["c_list"],
+                                    grid, order)
+        m_u0, q = m_u0.contiguous(), q.contiguous()
+        mesh_k = S.launch_spread(m_u0, q, grid, order)
+        mesh_p = S.spread_torch(m_u0, q, grid, order)
+        rng = np.random.default_rng(15)
+        g_mesh = torch.tensor(rng.standard_normal((n_ch, *grid)),
+                              device=q.device, dtype=torch.float32)
+        same = torch.equal(S.launch_gather(m_u0, g_mesh, grid, order),
+                           S.gather_torch(m_u0, g_mesh, grid, order))
+        err = float((mesh_k - mesh_p).abs().max() / mesh_p.abs().max())
+        log(f"front end ({order}, {n_ch}) on {grid} ({4 * n_ch * np.prod(grid) / 1e6:.1f} MB): "
+            f"spread max err {err:.3e} x max|mesh|, gather bitwise equal "
+            f"{same}")
+        require(err <= TOL_SPREAD, f"spread ({order}, {n_ch}) on {grid}: {err}")
+        require(same, f"gather ({order}, {n_ch}) on {grid} differs")
+        out[order, n_ch] = (m_u0, q, g_mesh)
+    return out
+
+
+def front_end_path(w):
+    """Phase 3g: the MPID water XML and a PDB of the main path's box through
+    Hamiltonian.createPotential on the card; its system, its potentials
+    against the direct force objects (kernels, plain f32), its parameter
+    gradients against plain f64, and its kernel launches. Returns what
+    phase 4 times."""
+    import tempfile
+
+    s, dev = w["sys"], w["positions"].device
+    with tempfile.TemporaryDirectory() as tmp:
+        xml, pdb = write_water_inputs(tmp, s["positions"], s["box"])
+        t0 = time.perf_counter()
+        ham, pots = hamiltonian(xml, pdb, dev, torch.float32)
+        t_build = time.perf_counter() - t0
+        ham_32, pots_32 = hamiltonian(xml, pdb, dev, torch.float32,
+                                      plain=True)
+        ham_64, pots_64 = hamiltonian(xml, pdb, dev, torch.float64)
+    gens = ham.getGenerators()
+    system = ham._system
+    for k in ("axis_types", "axis_indices", "covalent_map"):
+        require(np.array_equal(getattr(system, k), s[k]),
+                f"front end: {k} differs from water_system's")
+    q_err = max(float(np.max(np.abs(getattr(system, k) - s[k])))
+                for k in ("q_cart", "pol", "tholes"))
+    require(q_err <= 1e-12, f"front end: q_cart/pol/tholes differ by {q_err}")
+    pme_f, disp_f = gens[1].pme_force, gens[0].disp_pme_force
+    grids = {(6, 1): (pme_f.K1, pme_f.K2, pme_f.K3),
+             (6, 3): (disp_f.K1, disp_f.K2, disp_f.K3)}
+    log(f"front end: Hamiltonian + createPotential in {t_build:.2f} s; "
+        f"{system.n_atoms} atoms, {len(system.bonds)} bonds, the system "
+        f"equals water_system's (q_cart/pol/tholes max diff {q_err:.1e}); "
+        f"electrostatic grid {grids[6, 1]} kappa {pme_f.kappa:.6f}, "
+        f"dispersion grid {grids[6, 3]} kappa {disp_f.kappa:.6f}, "
+        f"{w['ff_pairs'].shape[0]} cell-list pair slots")
+    stencils = check_spread_171(w, grids)
+
+    direct_k, pme_k = direct_potentials(w, torch.float32, "auto")
+    direct_32, pme_32 = direct_potentials(w, torch.float32, "torch")
+    pos, box, pairs = w["positions"], w["box"], w["ff_pairs"]
+    labels = ("dispersion", "polarizable")
+    # the polarizable potential is the exact-adjoint step (cold SCF): its
+    # force gate is the exact adjoint's (PERF.md §2)
+    tol_f = (TOL_STEP_F, TOL_ADJ_F)
+    for k, label in enumerate(labels):
+        reset_counts()
+        e_k, f_k, g_k = potential_grads(pots[k], gens[k], w, torch.float32)
+        counts = read_counts()
+        _, f_32, g_32 = potential_grads(pots_32[k], ham_32.getGenerators()[k],
+                                        w, torch.float32)
+        _, f_64, g_64 = potential_grads(pots_64[k], ham_64.getGenerators()[k],
+                                        w, torch.float64)
+        with torch.no_grad():
+            e_dk = float(direct_k[k](pos, box, pairs))
+        p = pos.detach().requires_grad_(True)
+        with torch.enable_grad():
+            e_d32 = direct_32[k](p, box, pairs)
+            (f_d32,) = torch.autograd.grad(e_d32, p)
+        e_k, e_d32 = float(e_k), e_d32.detach()
+        db = abs(e_k - e_dk) / abs(e_dk)
+        dc = abs(e_k - float(e_d32)) / abs(float(e_d32))
+        df = rel_rmse(f_k, f_d32)
+        scf = ""
+        if k == 1:
+            scf = (f"; SCF iterations Hamiltonian kernels / plain / f64 "
+                   f"{gens[1].pme_force.n_cycle} / "
+                   f"{ham_32.getGenerators()[1].pme_force.n_cycle} / "
+                   f"{ham_64.getGenerators()[1].pme_force.n_cycle}, direct "
+                   f"kernels / plain {pme_k.n_cycle} / {pme_32.n_cycle}")
+        log(f"phase 3g {label} launches: {counts}")
+        log(f"front end {label}: E {e_k:.6f} (Hamiltonian, kernels), "
+            f"{e_dk:.6f} (direct objects, kernels), {float(e_d32):.6f} "
+            f"(direct, plain f32) kJ/mol; Hamiltonian vs direct on the "
+            f"kernels rel {db:.3e}; vs direct plain f32 energy rel {dc:.3e}, "
+            f"force rel RMSE {df:.3e} (plain Hamiltonian vs direct plain "
+            f"{rel_rmse(f_32, f_d32):.3e}); forces vs plain f64: kernels "
+            f"{rel_rmse(f_k, f_64):.3e}, plain f32 {rel_rmse(f_32, f_64):.3e}"
+            f"{scf}")
+        require(db < TOL_FE, f"front end {label}: Hamiltonian vs direct {db}")
+        require(dc < TOL_STEP_E, f"front end {label}: energy vs plain {dc}")
+        require(df < tol_f[k], f"front end {label}: forces vs plain {df}")
+        for name in g_k:
+            err_k, err_32 = (rel_rmse(g[name], g_64[name]) for g in (g_k, g_32))
+            log(f"  dE/d{name}: kernel f32 vs plain f64 rel RMSE {err_k:.3e}, "
+                f"plain f32 vs plain f64 {err_32:.3e}")
+            require(bool(torch.isfinite(g_k[name]).all()),
+                    f"front end dE/d{name} not finite")
+            require(err_k <= 2 * err_32 + 1e-6,
+                    f"front end dE/d{name}: {err_k} > 2 x {err_32} + 1e-6")
+        # the dispersion potential's pair terms are plain PyTorch (XLA code
+        # in admp_tpu); its reciprocal space takes the three-channel K4/K6
+        want = ["pair_fwd", "pair_bwd", "pair_hvp"] if k == 1 else []
+        require(all(counts[c] > 0 for c in want), f"front end {label}: "
+                f"a pair kernel never launched ({want})")
+        shape = (6, 1) if k == 1 else (6, 3)
+        require(counts["spread_by_shape"][shape] > 0
+                and counts["gather_by_shape"][shape] > 0,
+                f"front end {label}: K4/K6 at {shape} never launched")
+    return dict(ham=ham, pots=pots, ham_32=ham_32, pots_32=pots_32,
+                stencils=stencils)
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: MD (examples/run_npt.py at --nmol 1000)
+# ---------------------------------------------------------------------------
+
+
+def build_md(device, dtype, method):
+    """examples/run_npt.py's system at --nmol 1000 in the port: fixed
+    multipoles (lmax 2, the influence grid following the box), Tang-Toennies
+    and the water bonded terms, rc 4 A on a cell list with a 1 A skin;
+    returns a dict with the energy(positions, box, pairs) closure."""
+    from admp_tpu_torch import (
+        ADMPPmeForce,
+        EngineConfig,
+        convert_cart2harm,
+        generate_pairwise_interaction,
+        neighbor_list_cell,
+        tt_damping_qq_c6_kernel,
+        water_system,
+    )
+    from admp_tpu_torch.ops.bonded import (
+        harmonic_angle_energy,
+        harmonic_bond_energy,
+        water_bonded_terms,
+    )
+
+    s = water_system(n_side=N_SIDE, spacing=SPACING, jitter=MD_JITTER,
+                     seed=SEED)
+    n = s["positions"].shape[0]
+    c = lambda x: torch.as_tensor(np.asarray(x), device=device, dtype=dtype)  # noqa: E731
+    positions, box = c(s["positions"]), c(s["box"])
+    nl = neighbor_list_cell(positions, box, RC + 1.0)
+    require(not bool(nl.did_overflow), "MD cell list overflow")
+    q_local = convert_cart2harm(c(s["q_cart"]), LMAX)
+    sc = c([0.0, 0.0, 0.0, 1.0, 1.0])
+    tt_args = [c(s[k]) for k in ("tt_a", "tt_b", "tt_q")] + [
+        c(s["c_list"])[:, 0]]
+    b_idx, r0, kb, a_idx, th0, ka = water_bonded_terms(n // 3)
+    b_idx, a_idx = (torch.as_tensor(x, device=device) for x in (b_idx, a_idx))
+    r0, kb, th0, ka = (c(x) for x in (r0, kb, th0, ka))
+    pme = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                       s["covalent_map"], RC, ETHRESH, lmax=LMAX,
+                       config=EngineConfig(cache_influence=False,
+                                           pair_kernel=method,
+                                           spread_method=method),
+                       device=device, dtype=dtype)
+    tt = generate_pairwise_interaction(tt_damping_qq_c6_kernel,
+                                       s["covalent_map"], device=device)
+
+    def energy(pos, bx, prs):
+        e = pme.get_energy(pos, bx, prs, q_local, sc)
+        e = e + tt(pos, bx, prs, sc, *tt_args)
+        e = e + harmonic_bond_energy(pos, bx, b_idx, r0, kb)
+        return e + harmonic_angle_energy(pos, bx, a_idx, th0, ka)
+
+    return dict(positions=positions, box=box, nl=nl, energy=energy, pme=pme,
+                masses=c(np.tile([15.999, 1.008, 1.008], n // 3)),
+                molecules=np.repeat(np.arange(n // 3), 3))
+
+
+def md_force_fn(m, box, pairs):
+    """force_fn(positions, aux) -> (energy, forces, aux) at a fixed box and
+    pair list."""
+    def force_fn(p, aux):
+        x = p.detach().requires_grad_(True)
+        with torch.enable_grad():
+            e = m["energy"](x, box, pairs)
+            (g,) = torch.autograd.grad(e, x)
+        return e.detach(), -g, aux
+
+    return force_fn
+
+
+def maxwell_velocities(masses, temperature, seed):
+    """Velocities (A/ps) drawn from the Maxwell distribution at
+    ``temperature`` with an explicit generator on the masses' device."""
+    from admp_tpu_torch.md import K_B
+
+    gen = torch.Generator(device=masses.device).manual_seed(seed)
+    noise = torch.randn((masses.shape[0], 3), generator=gen,
+                        device=masses.device, dtype=masses.dtype)
+    return noise * torch.sqrt(K_B * temperature * 100.0 / masses)[:, None]
+
+
+def nve_drift(m):
+    """NVE_STEPS velocity-Verlet steps from Maxwell velocities: (|dE_total|,
+    the starting kinetic energy, E_total at start and end)."""
+    from admp_tpu_torch.md import MDState, _kinetic, run_nve
+
+    box, pairs = m["box"], m["nl"].pairs
+    force_fn = md_force_fn(m, box, pairs)
+    v0 = maxwell_velocities(m["masses"], TEMPERATURE, SEED)
+    e0, f0, _ = force_fn(m["positions"], None)
+    ke0 = float(_kinetic(m["masses"], v0))
+    state = MDState(m["positions"], v0, f0, None)
+    final, kes = run_nve(force_fn, m["masses"], NVE_DT, state, NVE_STEPS)
+    with torch.no_grad():
+        e1 = float(m["energy"](final.positions, box, pairs)) + float(kes[-1])
+    e0 = float(e0) + ke0
+    require(bool(torch.isfinite(final.positions).all()), "NVE not finite")
+    return abs(e1 - e0), ke0, e0, e1
+
+
+def md_path(w):
+    """Phase 3h: an NVE segment on the kernels and on the plain f64 path,
+    then three NPT segments (Langevin, neighbor-list refresh, one MC
+    barostat move) on the kernels with their launch counts. Returns the
+    kernel and plain f32 systems for phase 4."""
+    from admp_tpu_torch import (
+        BAR_TO_KJMOL_A3,
+        MDState,
+        make_mc_barostat,
+        refresh_neighbor_list,
+        run_langevin,
+    )
+
+    dev = w["positions"].device
+    kern = build_md(dev, torch.float32, "auto")
+    log(f"MD: {kern['positions'].shape[0]} atoms, box "
+        f"{float(kern['box'][0, 0]):.3f} A, grid {kern['pme'].K1, kern['pme'].K2, kern['pme'].K3}"
+        f", {kern['nl'].pairs.shape[0]} pair slots (cell list, rc "
+        f"{RC} + 1 A skin)")
+    reset_counts()
+    drift_k = nve_drift(kern)
+    counts = read_counts()
+    drift_64 = nve_drift(build_md(dev, torch.float64, "torch"))
+    for label, (de, ke0, e0, e1) in (("kernels f32", drift_k),
+                                     ("plain f64", drift_64)):
+        log(f"NVE ({label}): {NVE_STEPS} steps of {NVE_DT} ps from Maxwell "
+            f"velocities at {TEMPERATURE} K: E_total {e0:.4f} -> {e1:.4f} "
+            f"kJ/mol, |dE| {de:.4f} = {de / ke0:.3e} x KE0 ({ke0:.2f})")
+        require(de < TOL_NVE * ke0, f"NVE drift ({label}) {de} >= "
+                f"{TOL_NVE} x {ke0}")
+    log(f"phase 3h NVE launches (kernels): {counts}")
+    require(all(counts[k] > 0 for k in ("pair_fwd", "pair_bwd"))
+            and counts["spread_by_shape"][6, 1] > 0
+            and counts["gather_by_shape"][6, 1] > 0,
+            "MD: a kernel never launched in the NVE segment")
+
+    # NPT: Langevin segments, a refresh, one barostat move (run_npt.py)
+    barostat = make_mc_barostat(kern["energy"], kern["molecules"],
+                                PRESSURE_BAR * BAR_TO_KJMOL_A3, TEMPERATURE,
+                                max_dlnv=MAX_DLNV)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    box, nl = kern["box"], kern["nl"]
+    p0 = kern["positions"]
+    state = MDState(p0, torch.zeros_like(p0),
+                    md_force_fn(kern, box, nl.pairs)(p0, None)[1], None)
+    for seg in range(NPT_SEGMENTS):
+        reset_counts()
+        state, kes = run_langevin(md_force_fn(kern, box, nl.pairs),
+                                  kern["masses"], NPT_DT, TEMPERATURE,
+                                  FRICTION, state, NPT_STEPS, gen)
+        nl = refresh_neighbor_list(nl, state.positions, box)
+        n_pairs = nl.pairs.shape[0]
+        pos, box_new, acc, e = barostat(state.positions, box, gen, nl.pairs)
+        accepted = bool(acc)
+        require(torch.equal(box_new, box) != accepted,
+                f"NPT segment {seg}: the box changed if and only if the "
+                f"move was rejected (accepted {accepted})")
+        box = box_new
+        if accepted:
+            nl = refresh_neighbor_list(nl, pos, box)
+        state = state._replace(
+            positions=pos, forces=md_force_fn(kern, box, nl.pairs)(pos, None)[1])
+        counts = read_counts()
+        t_inst = 2.0 * float(kes[-1]) / (3.0 * p0.shape[0] * 0.00831446261815324)
+        log(f"NPT segment {seg}: E {float(e):.3f} kJ/mol, V "
+            f"{abs(float(torch.det(box.double()))):.1f} A^3, T_inst "
+            f"{t_inst:.1f} K, barostat {'accept' if accepted else 'reject'}, "
+            f"pair slots {n_pairs} -> {nl.pairs.shape[0]}; launches "
+            f"K1 {counts['pair_fwd']}, K2 {counts['pair_bwd']}, K4 "
+            f"{counts['spread_by_shape'][6, 1]}, K6 "
+            f"{counts['gather_by_shape'][6, 1]}")
+        require(all(bool(torch.isfinite(x).all()) for x in
+                    (state.positions, state.velocities, state.forces, kes,
+                     box, e)), f"NPT segment {seg}: not finite")
+        require(counts["pair_fwd"] > 0 and counts["spread_by_shape"][6, 1] > 0,
+                f"NPT segment {seg}: a kernel never launched")
+    plain = build_md(dev, torch.float32, "torch")
+    return kern, plain
+
+
+def time_front_end(front, w, card):
+    """Phase 4 of the front end: ms per energy+force of each Hamiltonian
+    potential (kernels and plain f32; the polarizable one starts its SCF
+    cold on every call, as the front end does), and K4/K6 at (6, 1) and
+    (6, 3) on its 171^3 meshes beside their plain versions, the one
+    PyTorch call (index_add / take) and the bound; logged."""
+    for k, label in enumerate(("dispersion", "polarizable")):
+        out = []
+        for route, ham, pots in (("kernels", front["ham"], front["pots"]),
+                                 ("plain f32", front["ham_32"],
+                                  front["pots_32"])):
+            gen = ham.getGenerators()[k]
+
+            def run(n, pot=pots[k], gen=gen):
+                p = w["positions"]
+                for _ in range(n):
+                    x = p.detach().requires_grad_(True)
+                    e = pot(x, w["box"], w["ff_pairs"], gen.params)
+                    (g,) = torch.autograd.grad(e, x)
+                    p = p + w["drift"] + 0.0 * g
+                return [float(e.detach())]
+
+            ms, times, _ = time_runs(run, 3)
+            out.append(f"{route} {ms:.3f} ({[round(t, 3) for t in times]})")
+        log(f"phase 4 [{card}]: Hamiltonian {label} energy+force, ms/call "
+            "(median of 3 x 3): " + "; ".join(out))
+    for (order, n_ch), (m_u0, q, g_mesh) in front["stencils"].items():
+        grid = tuple(g_mesh.shape[1:])
+        for name, (kern, plain, lib, (b_ms, b_by)) in spread_calls(
+                m_u0, q, g_mesh, order).items():
+            ms, dev_ms = cuda_time_ms(kern)
+            p_ms, p_dev = cuda_time_ms(plain)
+            l_ms, l_dev = cuda_time_ms(lib)
+            log(f"phase 4 [{card}]: front end {grid} ({order}, {n_ch}) "
+                f"{name}: {ms:.4f} ms/call ({dev_ms:.4f} ms device), plain "
+                f"{p_ms:.4f} ({p_dev:.4f} device), one PyTorch call "
+                f"{l_ms:.4f} ({l_dev:.4f} device), bound {b_ms:.4f} ms "
+                f"({b_by})")
+
+
+def langevin_runner(m):
+    """run(n): n Langevin steps of the 3h system from its start (the first
+    forces taken once, here), for phase 4; returns [the last KE]."""
+    from admp_tpu_torch import MDState, run_langevin
+
+    force_fn = md_force_fn(m, m["box"], m["nl"].pairs)
+    p0 = m["positions"]
+    state0 = MDState(p0, torch.zeros_like(p0), force_fn(p0, None)[1], None)
+    gen = torch.Generator(device=p0.device).manual_seed(SEED)
+
+    def run(n):
+        _, kes = run_langevin(force_fn, m["masses"], NPT_DT, TEMPERATURE,
+                              FRICTION, state0, n, gen)
+        return [float(kes[-1])]
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1986,7 +2612,7 @@ def main():
 
     force, plain32 = main_path(w, record)
     log("phase 3: main path ok")
-    adj, adj_plain = adjoint_path(w, record)
+    adj, adj_plain, adj_warm = adjoint_path(w, record)
     log("phases 3b, 3c: exact-adjoint path and parameter gradients ok")
     fit_times = fitting_path(w, record)
     log("phase 3d: trainer ok")
@@ -1994,6 +2620,10 @@ def main():
     log("phase 3e: full force field ok")
     large = large_path(w98, record)
     log("phase 3f: large system ok")
+    front = front_end_path(w)
+    log("phase 3g: front end ok")
+    md_kern, md_plain = md_path(w)
+    log("phase 3h: MD ok")
 
     ms, times, iters = time_steps(force, w)
     ms_plain, times_plain, _ = time_steps(plain32, w)
@@ -2011,11 +2641,13 @@ def main():
         f"({[round(t, 3) for t in times_fixed]})")
     ms_adj, times_adj, iters_adj = time_steps(adj, w)
     ms_adj_plain, times_adj_plain, _ = time_steps(adj_plain, w)
+    ms_warm, times_warm, _ = time_steps(adj_warm, w)
     log(f"phase 4 [{card}]: exact-adjoint step (SCFConfig()): kernel path "
         f"{ms_adj:.3f} ms/step ({[round(t, 3) for t in times_adj]}), plain "
         f"path {ms_adj_plain:.3f} ms/step "
         f"({[round(t, 3) for t in times_adj_plain]}); warm PCG iterations "
-        f"{sorted(set(iters_adj))}")
+        f"{sorted(set(iters_adj))}; with adjoint_warmstart (kernels) "
+        f"{ms_warm:.3f} ms/step ({[round(t, 3) for t in times_warm]})")
     for label, t in fit_times.items():
         log(f"phase 4 [{card}]: fit step ({label}): kernel "
             f"{statistics.median(t['kernel'][1:]):.3f} ms/step "
@@ -2040,11 +2672,20 @@ def main():
             f"{N_REPEATS} x {N98_TIME_STEPS} steps): " + "; ".join(out)
             + " [auto: K5/K7, cuda: K4/K6, plain: index_add_ and the plain "
             "pair path]")
+    npt_run = langevin_runner(md_kern)
+    ms_npt, times_npt, _ = time_runs(npt_run)
+    ms_npt_plain, times_npt_plain, _ = time_runs(langevin_runner(md_plain))
+    log(f"phase 4 [{card}]: NPT Langevin step (3h system): kernel path "
+        f"{ms_npt:.3f} ms/step ({[round(t, 3) for t in times_npt]}), plain "
+        f"path {ms_npt_plain:.3f} ms/step "
+        f"({[round(t, 3) for t in times_npt_plain]})")
+    time_front_end(front, w, card)
     for name, run in (
             ("md", lambda n: run_steps(force, w, w["positions"], n)),
             ("adjoint", lambda n: run_steps(adj, w, w["positions"], n)),
             ("fullff", lambda n: run_ff(ff, w, n)),
-            ("large", lambda n: run_large(large[K98]["auto"], w98, n))):
+            ("large", lambda n: run_large(large[K98]["auto"], w98, n)),
+            ("npt", npt_run)):
         wall, device_ms, n_kernels, top = profile_steps(run, name)
         log(f"profile {name} (3 warm steps, profiler on): {wall:.3f} ms/step "
             f"wall, {device_ms:.3f} ms/step device busy "

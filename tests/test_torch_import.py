@@ -17,7 +17,16 @@ import admp_tpu_torch.fitting, admp_tpu_torch.checkpoint
 import admp_tpu_torch.ops.cuda.pairs, admp_tpu_torch.ops.cuda.spread
 import admp_tpu_torch.ops.exclusions, admp_tpu_torch.ops.reciprocal
 import admp_tpu_torch.systems
+import admp_tpu_torch.md, admp_tpu_torch.api, admp_tpu_torch.ops.bonded
+import admp_tpu_torch.io, admp_tpu_torch.io.pdb, admp_tpu_torch.io.ffxml
+import admp_tpu_torch.io.topology, admp_tpu_torch.utils.safety
+import admp_tpu_torch.utils.profiling, admp_tpu_torch.contrib
 from admp_tpu_torch.ops.cuda import build
+try:
+    import admp_tpu_torch.contrib.openmm
+except ImportError as exc:
+    # without openmm the adapter refuses and names the native front end
+    assert 'admp_tpu_torch.api.Hamiltonian' in str(exc), exc
 assert 'jax' not in sys.modules, 'jax imported'
 assert 'admp_tpu' not in sys.modules, 'admp_tpu imported'
 assert 'triton' not in sys.modules, 'triton imported'

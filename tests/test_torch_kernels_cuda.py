@@ -698,3 +698,118 @@ def test_auto_takes_the_tiled_pair_on_a_large_mesh(dev):
         out[method] = (mesh, g)
     assert _rel(out["auto"][0], out["torch"][0]) < 1e-5
     assert _rel(out["auto"][1], out["torch"][1]) < 1e-4
+
+
+def _plain(ham):
+    """Switch a Hamiltonian's force objects to the plain path."""
+    import dataclasses
+
+    for gen in ham.getGenerators():
+        f = getattr(gen, "pme_force", None) or gen.disp_pme_force
+        f.config = dataclasses.replace(f.config, pair_kernel="torch",
+                                       spread_method="torch")
+        f.refresh_calculators()
+
+
+def test_hamiltonian_potentials_kernels_match_plain(dev, tmp_path):
+    """The front end on the card (MPID water XML, a PDB of 192 atoms):
+    both potentials on the kernels against the plain f32 path, energy 1e-5
+    relative, forces 1e-4 (dispersion) and 2e-4 (the polarizable one, an
+    exact-adjoint step, as test_exact_adjoint_step_kernels_match_plain) and
+    parameter gradients 1e-3 relative RMSE, and the kernels launched (K1-K3
+    and K4/K6 at (6, 1) for the polarizable one, K4/K6 at (6, 3) for
+    dispersion)."""
+    from admp_tpu_torch import Hamiltonian
+    from chip_smoke import write_water_inputs
+
+    s, pos, box, _, _, pairs = _system(dev)
+    xml, pdb = write_water_inputs(tmp_path, s["positions"], s["box"])
+    out = {}
+    for method in ("auto", "torch"):
+        ham = Hamiltonian(xml, device=dev)
+        ham.getGenerators()[1].ref_dip = ""
+        pots = ham.createPotential(pdb, nonbondedCutoff=4.0)
+        if method == "torch":
+            _plain(ham)
+        before = (P.launch_pair_hvp.launches, S.launch_spread.by_shape[6, 1],
+                  S.launch_spread.by_shape[6, 3])
+        res = []
+        for pot, gen in zip(pots, ham.getGenerators()):
+            params = {k: v.clone().requires_grad_(True)
+                      for k, v in gen.params.items()}
+            x = pos.detach().requires_grad_(True)
+            e = pot(x, box, pairs, params)
+            names = [k for k in params if k not in ("dScales", "U_ind")]
+            grads = torch.autograd.grad(e, [x] + [params[k] for k in names])
+            res.append((e.detach(), grads))
+        after = (P.launch_pair_hvp.launches, S.launch_spread.by_shape[6, 1],
+                 S.launch_spread.by_shape[6, 3])
+        assert all((b > a) == (method == "auto")
+                   for a, b in zip(before, after)), (before, after)
+        out[method] = res
+    for (e_k, g_k), (e_p, g_p), tol in zip(out["auto"], out["torch"],
+                                           (1e-4, 2e-4)):
+        assert abs(float(e_k) - float(e_p)) <= 1e-5 * abs(float(e_p))
+        assert _rel(g_k[0], g_p[0]) < tol
+        for a, b in zip(g_k[1:], g_p[1:]):
+            assert _rel(a, b) < 1e-3
+
+
+def test_langevin_step_and_barostat_on_kernels(dev):
+    """One Langevin step and one MC barostat move of fixed multipoles +
+    Tang-Toennies + bonded water (the NPT loop's force field) on the kernels
+    against the plain f32 path with the same generator seeds."""
+    from admp_tpu_torch import (
+        MDState,
+        generate_pairwise_interaction,
+        make_langevin_step,
+        make_mc_barostat,
+        tt_damping_qq_c6_kernel,
+    )
+    from admp_tpu_torch.ops.bonded import harmonic_bond_energy, water_bonded_terms
+
+    s, pos, box, q, _, pairs = _system(dev)
+    f = lambda x: torch.as_tensor(np.asarray(x), device=dev, dtype=torch.float32)  # noqa: E731
+    sc = f([0.0, 0.0, 0.0, 1.0, 1.0])
+    tt = generate_pairwise_interaction(tt_damping_qq_c6_kernel,
+                                       s["covalent_map"], device=dev)
+    tt_args = [f(s[k]) for k in ("tt_a", "tt_b", "tt_q")] + [f(s["c_list"])[:, 0]]
+    b_idx, r0, kb, _, _, _ = water_bonded_terms(pos.shape[0] // 3)
+    b_idx = torch.as_tensor(b_idx, device=dev)
+    masses = f(np.tile([15.999, 1.008, 1.008], pos.shape[0] // 3))
+    out = {}
+    for method in ("auto", "torch"):
+        pme = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                           s["covalent_map"], 4.0, 1e-4, 2,
+                           config=EngineConfig(pair_kernel=method,
+                                               spread_method=method),
+                           device=dev)
+
+        def energy(p, bx, prs, pme=pme):
+            e = pme.get_energy(p, bx, prs, q, sc) + tt(p, bx, prs, sc, *tt_args)
+            return e + harmonic_bond_energy(p, bx, b_idx, f(r0), f(kb))
+
+        def force_fn(p, aux, energy=energy):
+            x = p.detach().requires_grad_(True)
+            e = energy(x, box, pairs)
+            return e.detach(), -torch.autograd.grad(e, x)[0], aux
+
+        before = (P.launch_pair_fwd.launches, S.launch_spread.launches)
+        state = MDState(pos, torch.zeros_like(pos), force_fn(pos, None)[1])
+        gen = torch.Generator(device=dev).manual_seed(3)
+        state = make_langevin_step(force_fn, masses, 2e-4, 300.0, 10.0)(
+            state, gen)
+        move = make_mc_barostat(energy, np.repeat(np.arange(pos.shape[0] // 3), 3),
+                                6.02214076e-5, 300.0)(state.positions, box, gen,
+                                                     pairs)
+        after = (P.launch_pair_fwd.launches, S.launch_spread.launches)
+        assert all((b > a) == (method == "auto")
+                   for a, b in zip(before, after))
+        out[method] = (state, move)
+    (st_k, mv_k), (st_p, mv_p) = out["auto"], out["torch"]
+    assert _rel(st_k.positions, st_p.positions) < 1e-6
+    assert _rel(st_k.velocities, st_p.velocities) < 1e-4
+    assert _rel(st_k.forces, st_p.forces) < 1e-4
+    assert bool(mv_k[2]) == bool(mv_p[2])
+    assert _rel(mv_k[1], mv_p[1]) < 1e-6
+    assert abs(float(mv_k[3]) - float(mv_p[3])) <= 1e-5 * abs(float(mv_p[3]))

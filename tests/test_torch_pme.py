@@ -184,12 +184,13 @@ def test_unimplemented_options_raise():
         EngineConfig(recip_precision="f64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(realspace_precision="f64-near")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SCFConfig(method="jacobi")
     with pytest.raises(ValueError):
         EngineConfig(pair_kernel="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SCFConfig(adjoint_warmstart=True)
+    # the Jacobi method and the warm adjoint are ported
+    # (tests/test_torch_scf_options.py); an unknown method is refused
+    assert SCFConfig(method="jacobi", adjoint_warmstart=True).method == "jacobi"
+    with pytest.raises(ValueError):
+        SCFConfig(method="gmres")
     # the exact adjoint (default SCFConfig()) on the kernel path is ported
     s = water(n_side=2)
     force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],

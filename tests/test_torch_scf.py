@@ -101,7 +101,8 @@ def test_implicit_adjoint_gradient():
     u0 = torch.zeros(b.shape, dtype=torch.float64)
     r0 = t64(b) - matvec_fn(u0, [t], True)
     cfg = SCFConfig(field_tol=1e-12, max_iter=200, adjoint_tol=1e-12)
-    u, conv, n_it = ts.solve_implicit(r0, u0, t64(pol), matvec_fn, cfg, [t])
+    u, conv, n_it, _ = ts.solve_implicit(r0, u0, t64(pol), matvec_fn, cfg,
+                                         [t])
     assert conv and n_it > 0
     (g,) = torch.autograd.grad(torch.sum(u * t64(c)), t)
     full = a + 0.49 * np.eye(a.shape[0])

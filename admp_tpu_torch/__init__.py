@@ -7,7 +7,11 @@ dispersion PME (C6/C8/C10) and Tang-Toennies short range beside it, dense and
 cell neighbor lists, dense or sparse exclusion tables for large boxes, the
 XML/PDB front end (``Hamiltonian``, io/), molecular dynamics with bonded
 terms (md.py: NVE, Langevin, the MC barostat) and force-field fitting
-(fitting.py, checkpoint.py), with its pair, spread and gather stages on
+(fitting.py, checkpoint.py) and admp_tpu's precision modes
+(EngineConfig.high_accuracy(), ds_accuracy(): float64 exclusion, near-pair
+and all-pair real-space passes, float64 spread weights, the f64 and f64-dft
+reciprocal paths and the double-single reciprocal engine of ops/dsrecip.py),
+with its pair, spread and gather stages on
 hand-written CUDA kernels (ops/cuda, sources in csrc/) for float32 tensors on
 the card, and on plain PyTorch elsewhere. The entry points work on the card
 unless the caller asks for the CPU. admp_tpu (JAX) is the reference it is

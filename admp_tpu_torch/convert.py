@@ -119,9 +119,11 @@ def force_from_jax(jax_force, box, device="cuda", dtype=torch.float64,
                    **overrides):
     """A port ADMPPmeForce equivalent to the admp_tpu force ``jax_force``:
     same axis data, covalent map (dense or sparse), cutoff, lmax, lpol,
-    kappa, K1..K3 and the configuration fields both packages have
-    (``_engine_config``); overrides replace EngineConfig or SCFConfig fields
-    by name."""
+    kappa, K1..K3 (admp_tpu's power-of-two grid under recip_precision='ds'
+    among them) and the configuration fields both packages have
+    (``_engine_config``: the precision modes, realspace_near_radius and
+    realspace_near_frac too); overrides replace EngineConfig or SCFConfig
+    fields by name."""
     config = _engine_config(jax_force.config, overrides)
     force = ADMPPmeForce(
         np.asarray(box), np.asarray(jax_force.axis_type),

@@ -1,5 +1,5 @@
 """Multipolar electrostatic PME with optional Thole polarization
-(admp_tpu/models/pme.py, plain precision).
+(admp_tpu/models/pme.py).
 
 The class keeps admp_tpu's public surface: the constructor arguments (with
 the compatibility keywords), ``update_env`` and ``refresh_calculators``,
@@ -21,6 +21,16 @@ kernel's backward (K3 for ``'pol'``), and the adjoint differentiates the
 matvec with respect to its parameters (K3 for ``'uu'``). Gradients with
 respect to Q_local, pol, tholes, mScales and pScales flow through
 ``get_energy`` on either path.
+
+The precision modes (EngineConfig, admp_tpu/models/pme.py:380-622) are
+admp_tpu's: under a float64 real-space mode the frames, the multipole
+rotation and the self energy run in float64; ``'f64-all'`` evaluates every
+pair in float64; ``'f64'`` masks the topological pairs out of the working
+pass and evaluates them in float64 on the static ``exclusion_pair_list``;
+``'f64-near'`` adds, for the pairs closer than ``realspace_near_radius``,
+the float64 pair energy minus the working-dtype one on the same route, so
+the main pass's rounding of those pairs cancels. The reciprocal modes are
+ops/reciprocal.make_pme_recip's.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from admp_tpu_torch.ops.ewald import (
 from admp_tpu_torch.ops.exclusions import (
     SparseExclusions,
     as_covalent_map,
+    exclusion_pair_list,
     lookup_topology_distance,
     scale_for_distance,
 )
@@ -90,22 +101,27 @@ def _pair_scalars(kappa, box):
 def pme_real_energy(positions, box, pairs, q_global, u_ind_harm, pol, tholes,
                     m_scales, p_scales, covalent_map, kappa, lmax: int,
                     lpol: bool, compensated: bool = False,
-                    pair_kernel: str = "auto", pair_chunk: int | None = None):
+                    pair_kernel: str = "auto", pair_chunk: int | None = None,
+                    exclude_topological: bool = False):
     """Real-space multipolar Ewald energy over a padded pair list (pairs with
     i >= j are padding). ``pair_kernel`` picks the CUDA pair kernel or the
     plain component path (ops/cuda.use_kernel); ``pair_chunk`` sums over
-    blocks of that many pairs."""
+    blocks of that many pairs; ``exclude_topological`` also masks every pair
+    at a nonzero topological distance (the kernel takes it in its mask row),
+    which realspace_precision='f64' evaluates in float64 instead."""
     if pair_chunk is not None and pairs.shape[0] > pair_chunk:
         return _sum_pair_chunks(
             lambda blk: pme_real_energy(
                 positions, box, blk, q_global, u_ind_harm, pol, tholes,
                 m_scales, p_scales, covalent_map, kappa, lmax, lpol,
-                compensated, pair_kernel),
+                compensated, pair_kernel, None, exclude_topological),
             pairs, pair_chunk, compensated)
     n = positions.shape[0]
     i, j, mask = _pair_indices(pairs, n)
     nbond = lookup_topology_distance(covalent_map, i, j)
     mscale = scale_for_distance(m_scales, nbond)
+    if exclude_topological:
+        mask = mask & (nbond == 0)
 
     if use_kernel(pair_kernel, positions, "pair_kernel"):
         # the kernel takes the two gathered rows of one packed atom table
@@ -185,6 +201,8 @@ def make_induced_quadratic_energy(covalent_map, kappa, grid_shape,
         spread_method=config.spread_method,
         compensated=config.compensated_sums, static_box=static_box,
         spread_order=config.spread_order,
+        spread_precision=config.spread_precision,
+        recip_precision=config.recip_precision,
     )
 
     def energy_uu(positions, box, pairs, u_ind_cart, pol, tholes, p_scales):
@@ -205,19 +223,35 @@ def energy_pme(positions, box, pairs, q_local, u_ind_cart, pol, tholes,
                m_scales, p_scales, d_scales, covalent_map, axis_types,
                axis_indices, pme_recip_fn, kappa, lmax: int, lpol: bool,
                config: EngineConfig | None = None,
-               return_terms: bool = False, pair_chunk: int | None = None):
+               return_terms: bool = False, pair_chunk: int | None = None,
+               excl_pairs=None):
     """Total multipolar PME energy: real + reciprocal + self
     (+ polarization). ``u_ind_cart`` are Cartesian induced dipoles;
     ``d_scales`` is accepted for API parity and unused, as in admp_tpu.
-    ``pair_chunk``: the real-space sum over blocks of that many pairs."""
+    ``pair_chunk``: the real-space sum over blocks of that many pairs.
+    ``excl_pairs``: the static (E, 2) list of every topological pair
+    (ops/exclusions.exclusion_pair_list), which
+    ``config.realspace_precision='f64'`` evaluates in float64; it covers
+    every topological pair whatever the neighbour list's cutoff."""
     del d_scales
     config = config or EngineConfig()
+    work_dtype = positions.dtype
+    f64 = torch.float64
+    all64 = config.realspace_precision == "f64-all"
+    excl64 = config.realspace_precision == "f64" and excl_pairs is not None
+    near64 = config.realspace_precision == "f64-near"
+    # under a float64 real-space mode the O(N) stages (frames, rotation,
+    # self energy) run in float64: their rounding feeds the ~1e6-magnitude
+    # real/self/reciprocal cancellation
+    geo_dtype = f64 if (all64 or excl64 or near64) else work_dtype
     if lmax > 0:
-        frame_comps = local_frames_components(positions, box, axis_types,
-                                              axis_indices)
-        q_global = rot_local2global_components(q_local, frame_comps, lmax)
+        frame_comps = local_frames_components(
+            positions.to(geo_dtype), box.to(geo_dtype), axis_types,
+            axis_indices)
+        q_global = rot_local2global_components(q_local.to(geo_dtype),
+                                               frame_comps, lmax)
     else:
-        q_global = q_local
+        q_global = q_local.to(geo_dtype)
     lmax_eff = lmax
     u_harm = None
     q_tot = q_global
@@ -227,27 +261,48 @@ def energy_pme(positions, box, pairs, q_local, u_ind_cart, pol, tholes,
             q_global = torch.cat(
                 [q_global, q_global.new_zeros(q_global.shape[0], 3)], dim=-1)
             lmax_eff = 1
-        u_harm = cart_dipole_to_harm(u_ind_cart)
+        u_harm = cart_dipole_to_harm(u_ind_cart).to(geo_dtype)
         q_tot = torch.cat([q_global[:, :1], q_global[:, 1:4] + u_harm,
                            q_global[:, 4:]], dim=-1)
-    e_real = pme_real_energy(
-        positions, box, pairs, q_global, u_harm, pol, tholes, m_scales,
-        p_scales, covalent_map, kappa, lmax_eff, lpol,
-        compensated=config.compensated_sums, pair_kernel=config.pair_kernel,
-        pair_chunk=pair_chunk)
+
+    def pair_pass(dtype, pair_list, pair_kernel, **kw):
+        cast = lambda t: None if t is None else t.to(dtype)  # noqa: E731
+        return pme_real_energy(
+            positions.to(dtype), box.to(dtype), pair_list, q_global.to(dtype),
+            cast(u_harm), cast(pol), cast(tholes), m_scales.to(dtype),
+            cast(p_scales), covalent_map, kappa, lmax_eff, lpol,
+            pair_kernel=pair_kernel, **kw)
+
+    # a float64 pass takes the plain path under every pair_kernel, as
+    # admp_tpu's float64 passes never take its kernel
+    if all64:
+        e_real = pair_pass(f64, pairs, "auto", pair_chunk=pair_chunk)
+    else:
+        e_real = pair_pass(work_dtype, pairs, config.pair_kernel,
+                           compensated=config.compensated_sums,
+                           pair_chunk=pair_chunk,
+                           exclude_topological=excl64)
+    if excl64:
+        e_real = e_real.to(f64) + pair_pass(f64, excl_pairs, "auto")
+    if near64:
+        e_real = e_real.to(f64) + _near_pair_delta(
+            positions, box, pairs, config, pair_pass)
+    recip_f64 = config.recip_precision in ("f64", "f64-dft")
     if lpol and lmax == 0:
         # the engine spreads charges only; the dipoles go on their own mesh
-        e_recip = pme_recip_fn(positions, box, q_global[:, :1], u_harm)
+        recip_q = q_global if recip_f64 else q_global.to(work_dtype)
+        recip_u = u_harm if recip_f64 else u_harm.to(work_dtype)
+        e_recip = pme_recip_fn(positions, box, recip_q[:, :1], recip_u)
     else:
-        e_recip = pme_recip_fn(positions, box, q_tot)
+        e_recip = pme_recip_fn(positions, box,
+                               q_tot if recip_f64 else q_tot.to(work_dtype))
     e_self = pme_self_energy(q_tot, kappa, lmax_eff)
     e_pol = None
     if lpol:
-        e_pol = polarization_penalty(u_ind_cart, pol)
+        e_pol = polarization_penalty(u_ind_cart.to(geo_dtype), pol)
         e_self = e_self + e_pol
     # compensated float32 sums come back in float64 (utils/accmath): add the
     # ~1e6-magnitude terms there and round the total once
-    work_dtype = positions.dtype
     total = (e_real + e_recip + e_self).to(work_dtype)
     if return_terms:
         terms = {"e_real": e_real, "e_recip": e_recip, "e_self": e_self}
@@ -255,6 +310,48 @@ def energy_pme(positions, box, pairs, q_local, u_ind_cart, pol, tholes,
             terms["e_pol_penalty"] = e_pol
         return total, {k: v.to(work_dtype) for k, v in terms.items()}
     return total
+
+
+def _near_pair_delta(positions, box, pairs, config, pair_pass):
+    """realspace_precision='f64-near' (admp_tpu/models/pme.py:520-587): the
+    pairs closer than ``realspace_near_radius``, compacted in order to
+    ceil(capacity x ``realspace_near_frac``) slots clipped to [128,
+    capacity] by a cumulative sum and a scatter (no host read), evaluated in
+    float64 and in the working dtype on the main pass's route and with its
+    summation; returns E64 - E_work. More near pairs than slots make the
+    energy NaN and, through a NaN times zero term, the position gradient
+    too."""
+    f64 = torch.float64
+    cap = pairs.shape[0]
+    n = positions.shape[0]
+    with torch.no_grad():
+        i, j, pmask = _pair_indices(pairs, n)
+        r = realspace.pair_displacement_components(positions, box, i, j,
+                                                   pmask)[3]
+        sel = pmask & (r < config.realspace_near_radius)
+        near_cap = min(max(int(np.ceil(cap * config.realspace_near_frac)),
+                           128), cap)
+        slot = torch.cumsum(sel.long(), 0) - 1
+        slot = torch.where(sel & (slot < near_cap), slot,
+                           torch.full_like(slot, near_cap))
+        idx = torch.full((near_cap + 1,), cap, dtype=torch.long,
+                         device=pairs.device)
+        idx = idx.scatter(0, slot, torch.arange(cap, device=pairs.device))
+        idx = idx[:near_cap]
+        near_pairs = torch.where((idx < cap)[:, None],
+                                 pairs[torch.clamp(idx, max=cap - 1)],
+                                 torch.full_like(pairs[:1], n))
+        overflowed = sel.sum() > near_cap
+    # the working-dtype pass sums as the main pass does (compensated), so
+    # the delta cancels the main pass's near pairs in the energy too;
+    # admp_tpu sums it plainly and keeps that sum's f32 rounding
+    delta = (pair_pass(f64, near_pairs, "auto")
+             - pair_pass(positions.dtype, near_pairs, config.pair_kernel,
+                         compensated=config.compensated_sums).to(f64))
+    nan = torch.full_like(delta, float("nan"))
+    delta = torch.where(overflowed, nan, delta)
+    poison = torch.where(overflowed, nan, torch.zeros_like(delta))
+    return delta + poison * positions.sum().to(f64) * 0.0
 
 
 class ADMPPmeForce:
@@ -310,11 +407,19 @@ class ADMPPmeForce:
             kappa, k1, k2, k3 = setup_ewald_parameters(rc, ethresh, box_np)
         if self.config.resolve_lane_align():
             k3 = lane_align_k3(k3)
+        if self.config.recip_precision == "ds":
+            # the DS engine's radix-2 FFT needs power-of-two grids: round
+            # the heuristic up (admp_tpu/models/pme.py:688-691)
+            k1, k2, k3 = (1 << (int(k) - 1).bit_length() for k in (k1, k2, k3))
         self.kappa = kappa
         self.K1, self.K2, self.K3 = k1, k2, k3
         self.scf_config = self.config.scf
         self._static_box = (self._float(box_np) if self.config.cache_influence
                             else None)
+        # the static topological pair list of realspace_precision='f64'
+        self._excl_pairs = (
+            exclusion_pair_list(self.covalent_map).to(self.device)
+            if self.config.realspace_precision == "f64" else None)
         self.U_ind = torch.zeros((self.n_atoms, 3), device=self.device,
                                  dtype=dtype)
         # the adjoint warm start, carried across get_forces calls like U_ind
@@ -367,6 +472,8 @@ class ADMPPmeForce:
             DIELECTRIC, spread_method=cfg.spread_method,
             compensated=cfg.compensated_sums, static_box=self._static_box,
             spread_order=cfg.spread_order,
+            spread_precision=cfg.spread_precision,
+            recip_precision=cfg.recip_precision,
         )
         if self.lpol:
             scf = self.scf_config
@@ -401,7 +508,8 @@ class ADMPPmeForce:
             self._float(Q_local), None, None, None, self._float(mScales),
             None, None, self.covalent_map, self.axis_type, self.axis_indices,
             self.pme_recip, self._kappa, self.lmax, False, self.config,
-            return_terms=return_terms, pair_chunk=pair_chunk_for(pairs))
+            return_terms=return_terms, pair_chunk=pair_chunk_for(pairs),
+            excl_pairs=self._excl_pairs)
 
     def _fixed_energy(self, positions, box, pairs, Q_local, mScales):
         return self._fixed_terms(positions, box, pairs, Q_local, mScales)
@@ -439,7 +547,8 @@ class ADMPPmeForce:
             inp["dScales"], self.covalent_map, self.axis_type,
             self.axis_indices, self.pme_recip, self._kappa, self.lmax, True,
             self.config, return_terms=return_terms,
-            pair_chunk=pair_chunk_for(inp["pairs"]))
+            pair_chunk=pair_chunk_for(inp["pairs"]),
+            excl_pairs=self._excl_pairs)
 
     def field(self, u, inp, create_graph=False):
         """dE/du at ``u``: one torch.autograd.grad of the total energy."""

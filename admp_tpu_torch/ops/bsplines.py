@@ -40,6 +40,13 @@ def _tables(order):
 
 _TABLES = {6: _tables(6), 4: _tables(4)}
 
+# The order-6 piece tables (B, B', B'') and the third-derivative table: the
+# double-single reciprocal engine (ops/dsrecip.py) evaluates them with
+# DS-split coefficients, and its hand-written adjoint differentiates each
+# channel once more (admp_tpu/ops/dsrecip.py:48-52).
+_C, _C1, _C2 = _TABLES[6]
+_C3 = _C2[:, 1:] * np.arange(1, ORDER - 2)
+
 # B6 at the integer knots 1..5 and B4 at 1..3 (Euler spline factors)
 B6_KNOTS = np.array([1.0, 26.0, 66.0, 26.0, 1.0]) / 120.0
 B4_KNOTS = np.array([1.0, 4.0, 1.0]) / 6.0

@@ -1,5 +1,5 @@
 """Reciprocal-space PME: B-spline multipole spreading, 3D FFT, influence
-convolution (admp_tpu/ops/reciprocal.py, plain precision only).
+convolution (admp_tpu/ops/reciprocal.py).
 
 E = prefactor sum_k C(|k|^2) |S_k|^2 / theta_k^2 with S_k = FFT(Q_mesh), over
 the rfft half-spectrum with Hermitian multiplicity weights. The spread runs
@@ -9,6 +9,18 @@ larger than the card's L2) or on ``index_add_`` (``spread_method``,
 spreads one multipolar channel and excludes the gamma point; the dispersion
 engine (``make_disp_pme_recip``) spreads the C6/C8/C10 channels in one pass
 and includes it.
+
+The precision modes of the electrostatic engine (admp_tpu/ops/reciprocal.py
+:45-100, 349-378, 777-948): ``spread_precision='f64'`` evaluates the spline
+weights in float64 and rounds the stencil values to the working dtype before
+the spread (K4/K6 on a float32 CUDA mesh); ``recip_precision='f64'`` and
+``'f64-dft'`` accumulate a float64 mesh (``index_add_``: the kernels are
+float32 only, as admp_tpu's f64 mode leaves its slab kernel) and transform it
+with the native float64 FFT, or with explicit-matmul DFTs; ``'ds'`` is the
+double-single engine of ops/dsrecip.py. admp_tpu splits a float64 mesh into
+hi/lo float32 FFTs off the CPU because the TPU has no float64 FFT; the card
+has one, so the port always takes it, and keeps the split
+(``spectrum_sq(..., force_split=True)``) for the tests.
 """
 
 from __future__ import annotations
@@ -16,6 +28,7 @@ from __future__ import annotations
 import math
 import warnings
 
+import numpy as np
 import torch
 
 from admp_tpu_torch.ops import bsplines
@@ -103,10 +116,15 @@ def spread_points_separable(u0, alpha, lmax: int, order: int = 6):
 
 
 def atom_spread_alpha(positions, box, q_harm, grid_shape, lmax: int,
-                      order: int = 6):
+                      order: int = 6, precision: str | None = None):
     """(m_u0, u0, alpha): base mesh index, fractional offsets, and the
     separable-term coefficients alpha = q @ spread_mixing_matrix (with the
-    MPID quadrupole 1/3 applied)."""
+    MPID quadrupole 1/3 applied); ``precision='f64'`` evaluates them in
+    float64."""
+    if precision == "f64":
+        f64 = torch.float64
+        positions, box, q_harm = (positions.to(f64), box.to(f64),
+                                  q_harm.to(f64))
     m_u0, u0, dug_dx = mesh_coordinates(positions, box, grid_shape, order)
     q = q_harm[:, : (lmax + 1) ** 2]
     if lmax >= 2:
@@ -157,23 +175,31 @@ ATOM_CHUNK, ATOM_CHUNK_ABOVE = 4096, 16384
 
 def spread_to_mesh(positions, box, q_harm, grid_shape, lmax: int,
                    method: str = "auto", order: int = 6,
-                   atom_chunk: int | None = None):
+                   atom_chunk: int | None = None,
+                   precision: str | None = None, mesh_dtype=None):
     """Spread harmonic multipoles onto the (K1, K2, K3) charge mesh;
     quadrupole channels carry the MPID 1/3 prefactor. ``atom_chunk``: on the
     plain route, accumulate the mesh over blocks of that many atoms, which
     bounds the (N, order^3) stencil intermediates (admp_tpu's kernel paths
-    ignore it, and so do the port's)."""
+    ignore it, and so do the port's).
+
+    ``precision='f64'``: the spline-weight pipeline in float64, its stencil
+    values rounded to the mesh dtype before the spread. ``mesh_dtype``: the
+    mesh's dtype (default the working dtype of ``q_harm``); the route is
+    resolved for it, so a float64 mesh takes ``index_add_`` under 'auto'."""
     grid_shape = tuple(int(k) for k in grid_shape)
-    route = resolve_spread_method(method, positions, order, grid_shape)
+    work_dtype = mesh_dtype or q_harm.dtype
+    route = resolve_spread_method(
+        method, q_harm.new_empty(0, dtype=work_dtype), order, grid_shape)
     n = positions.shape[0]
     if route == "torch" and atom_chunk is not None and n > atom_chunk:
         return sum(spread_to_mesh(positions[a:a + atom_chunk], box,
                                   q_harm[a:a + atom_chunk], grid_shape, lmax,
-                                  "torch", order)
+                                  "torch", order, None, precision, mesh_dtype)
                    for a in range(0, n, atom_chunk))
     m_u0, u0, alpha = atom_spread_alpha(positions, box, q_harm, grid_shape,
-                                        lmax, order)
-    q_points = spread_points_separable(u0, alpha, lmax, order)
+                                        lmax, order, precision)
+    q_points = spread_points_separable(u0, alpha, lmax, order).to(work_dtype)
     mesh = spread_ops.spread_route(
         m_u0, q_points.reshape(n, 1, order ** 3), grid_shape, order, route)
     return mesh[0]
@@ -209,10 +235,56 @@ def multi_stencil(positions, box, coeffs, grid_shape, order: int = 6):
     return m_u0, theta[:, None, :] * coeffs[:, :, None]
 
 
-def spectrum_sq(mesh):
-    """|FFT(mesh)|^2 over the rfft half-spectrum of the last three axes."""
-    s_k = torch.fft.rfftn(mesh, dim=(-3, -2, -1))
+def spectrum_sq(mesh, force_split: bool = False):
+    """|FFT(mesh)|^2 over the rfft half-spectrum of the last three axes, in
+    ``mesh.dtype``. ``force_split`` (float64 mesh): admp_tpu's TPU path,
+    the FFTs of the hi and lo float32 halves summed in float64 (the FFT is
+    linear); otherwise the native FFT of the mesh's dtype."""
+    dims = (-3, -2, -1)
+    if mesh.dtype == torch.float64 and force_split:
+        hi32 = mesh.to(torch.float32)
+        lo32 = (mesh - hi32.to(mesh.dtype)).to(torch.float32)
+        sh = torch.fft.rfftn(hi32, dim=dims)
+        sl = torch.fft.rfftn(lo32, dim=dims)
+        re = sh.real.to(mesh.dtype) + sl.real.to(mesh.dtype)
+        im = sh.imag.to(mesh.dtype) + sl.imag.to(mesh.dtype)
+        return re * re + im * im
+    s_k = torch.fft.rfftn(mesh, dim=dims)
     return s_k.real * s_k.real + s_k.imag * s_k.imag
+
+
+_DFT_MATS = {}
+
+
+def _dft_mats(k: int, n_out: int, like):
+    """Real cos/sin DFT matrices C[m, c] = cos(2 pi m c / k), S = sin, in
+    ``like``'s dtype on its device; put there once (a host-to-device copy in
+    the step would wait for the queued work)."""
+    key = (k, n_out, like.dtype, str(like.device))
+    if key not in _DFT_MATS:
+        m = np.arange(n_out)[:, None]
+        c = np.arange(k)[None, :]
+        ang = 2.0 * np.pi * (m * c % k) / k
+        _DFT_MATS[key] = (like.new_tensor(np.cos(ang)),
+                          like.new_tensor(np.sin(ang)))
+    return _DFT_MATS[key]
+
+
+def spectrum_sq_dft(mesh):
+    """|DFT(mesh)|^2 over the rfft half-spectrum by explicit-matmul DFTs
+    in the mesh's dtype (O(K^4)): recip_precision='f64-dft'."""
+    k1, k2, k3 = mesh.shape
+    c3, s3 = _dft_mats(k3, k3 // 2 + 1, mesh)
+    re = torch.einsum("abc,kc->abk", mesh, c3)
+    im = -torch.einsum("abc,kc->abk", mesh, s3)
+    # e^{-i t}(R + i I) = (R cos + I sin) + i(I cos - R sin)
+    c2, s2 = _dft_mats(k2, k2, mesh)
+    mid = lambda a, m: torch.einsum("abk,mb->amk", a, m)  # noqa: E731
+    re, im = mid(re, c2) + mid(im, s2), mid(im, c2) - mid(re, s2)
+    c1, s1 = _dft_mats(k1, k1, mesh)
+    lead = lambda a, m: torch.einsum("amk,na->nmk", a, m)  # noqa: E731
+    re, im = lead(re, c1) + lead(im, s1), lead(im, c1) - lead(re, s1)
+    return re * re + im * im
 
 
 def _fft_int_freqs(n: int, dtype, device):
@@ -255,13 +327,16 @@ def _hermitian_weights(k3: int, dtype, device):
 
 
 def influence_weights(box, grid_shape, kappa, ck_fn, order: int = 6,
-                      include_gamma: bool = False):
+                      include_gamma: bool = False, dtype=None):
     """Influence grid C(k^2)/theta_k^2 over the rfft half-spectrum with the
-    Hermitian multiplicity folded in, in the box's dtype. The gamma point is
+    Hermitian multiplicity folded in, in ``dtype`` (default the box's). The
+    gamma point is
     excluded (electrostatics) or, with ``include_gamma`` (dispersion), holds
     the kernel's analytic limit ``ck_fn.at_zero`` / theta_0^2: admp_tpu adds
     that term beside the sum (reciprocal.py:627-629, 676-677); folded into
     the grid it is the same term."""
+    if dtype is not None:
+        box = box.to(dtype)
     ksq, theta_sq = k_space_grids(box, grid_shape, box.dtype, order)
     volume = det3x3(box)
     w3 = _hermitian_weights(grid_shape[2], box.dtype, box.device)
@@ -273,9 +348,12 @@ def influence_weights(box, grid_shape, kappa, ck_fn, order: int = 6,
     return c_k / theta_sq * w3[None, None, :]
 
 
-def convolve_energy(mesh, weight, prefactor=1.0, compensated: bool = False):
-    """E = prefactor sum_k weight_k |S_k|^2 (Parseval over the half-spectrum)."""
-    terms = weight.to(mesh.dtype) * spectrum_sq(mesh)
+def convolve_energy(mesh, weight, prefactor=1.0, compensated: bool = False,
+                    dft: bool = False):
+    """E = prefactor sum_k weight_k |S_k|^2 (Parseval over the half-spectrum);
+    ``dft``: the spectrum by explicit-matmul DFTs (spectrum_sq_dft)."""
+    s_sq = spectrum_sq_dft(mesh) if dft else spectrum_sq(mesh)
+    terms = weight.to(mesh.dtype) * s_sq
     if compensated and terms.dtype == torch.float32:
         return prefactor * compensated_sum(terms)
     return prefactor * terms.sum()
@@ -306,20 +384,39 @@ class _CachedInfluenceBoxGuard(torch.autograd.Function):
 
 def make_pme_recip(ck_fn, kappa, grid_shape, lmax, prefactor=1.0,
                    spread_method: str = "auto", compensated: bool = False,
-                   static_box=None, spread_order: int = 6):
+                   static_box=None, spread_order: int = 6,
+                   spread_precision: str | None = None,
+                   recip_precision: str | None = None):
     """Build a reciprocal-space energy function (positions, box, Q) -> energy
-    (admp_tpu's ``make_pme_recip`` without the gamma point).
+    (admp_tpu's ``make_pme_recip`` without the gamma point), returned in the
+    dtype of Q.
 
     ``static_box``: fixed-cell fast path; the influence grid is computed once
-    (in the box tensor's dtype and device) and the per-step convolution is
-    FFT + multiply-and-sum. Box gradients through it are then zero, with a
-    warning (see _CachedInfluenceBoxGuard).
+    (in the box tensor's dtype and device, float64 under the f64 modes) and
+    the per-step convolution is FFT + multiply-and-sum. Box gradients through
+    it are then zero, with a warning (see _CachedInfluenceBoxGuard).
+
+    ``spread_precision='f64'``: float64 spline weights (spread_to_mesh).
+    ``recip_precision``: ``'f64'`` a float64 mesh, FFT, influence and
+    Parseval sum (implies the f64 spread weights); ``'f64-dft'`` the same
+    with explicit-matmul DFTs; ``'ds'`` the double-single engine
+    (ops/dsrecip.py, power-of-two grids), which merges induced dipoles into
+    the dipole channels of one lmax >= 1 mesh.
     """
     grid_shape = tuple(int(k) for k in grid_shape)
+    if recip_precision == "ds":
+        return _make_ds_recip(kappa, grid_shape, lmax, prefactor, static_box)
+    f64_mode = recip_precision in ("f64", "f64-dft")
+    mesh_dtype = None
+    if f64_mode:
+        spread_precision = "f64"
+        mesh_dtype = torch.float64
+        if spread_method in ("cuda", "cuda2d"):
+            spread_method = "torch"  # the kernels are float32 only
     cached = None
     if static_box is not None:
         cached = influence_weights(static_box, grid_shape, kappa, ck_fn,
-                                   spread_order)
+                                   spread_order, dtype=mesh_dtype)
 
     def pme_recip(positions, box, q_harm, u_harm=None):
         """``u_harm`` (N, 3, harmonic z/x/y order): induced dipoles spread on
@@ -329,19 +426,51 @@ def make_pme_recip(ck_fn, kappa, grid_shape, lmax, prefactor=1.0,
         atom_chunk = (ATOM_CHUNK if positions.shape[0] > ATOM_CHUNK_ABOVE
                       else None)
         mesh = spread_to_mesh(positions, box, q_harm, grid_shape, lmax,
-                              spread_method, spread_order, atom_chunk)
+                              spread_method, spread_order, atom_chunk,
+                              spread_precision, mesh_dtype)
         if u_harm is not None:
             q_u = torch.cat([u_harm.new_zeros(u_harm.shape[0], 1), u_harm],
                             dim=-1)
             mesh = mesh + spread_to_mesh(positions, box, q_u, grid_shape, 1,
                                          spread_method, spread_order,
-                                         atom_chunk)
+                                         atom_chunk, spread_precision,
+                                         mesh_dtype)
         weight = cached if cached is not None else influence_weights(
-            box.to(mesh.dtype), grid_shape, kappa, ck_fn, spread_order)
-        energy = convolve_energy(mesh, weight, prefactor, compensated)
+            box, grid_shape, kappa, ck_fn, spread_order, dtype=mesh.dtype)
+        energy = convolve_energy(mesh, weight, prefactor, compensated,
+                                 dft=recip_precision == "f64-dft")
         return energy.to(q_harm.dtype)
 
     return pme_recip
+
+
+def _make_ds_recip(kappa, grid_shape, lmax, prefactor, static_box):
+    """recip_precision='ds' (admp_tpu/ops/reciprocal.py:859-888): the DS
+    engine at lmax, and for induced dipoles beside charges (lmax 0) one at
+    lmax 1 whose dipole channels carry them: spreading is linear, so one
+    mesh holds both."""
+    from admp_tpu_torch.ops.dsrecip import make_ds_pme_recip
+
+    engines = {lmax: make_ds_pme_recip(kappa, grid_shape, lmax, prefactor,
+                                       static_box=static_box)}
+
+    def ds_recip(positions, box, q_harm, u_harm=None):
+        if u_harm is None:
+            e = engines[lmax](positions, box, q_harm)
+        else:
+            lm = max(lmax, 1)
+            if lm not in engines:
+                engines[lm] = make_ds_pme_recip(kappa, grid_shape, lm,
+                                                prefactor,
+                                                static_box=static_box)
+            q4 = u_harm.new_zeros(q_harm.shape[0], (lm + 1) ** 2)
+            q4 = torch.cat([q_harm.to(u_harm.dtype),
+                            q4[:, q_harm.shape[1]:]], dim=1)
+            q4 = torch.cat([q4[:, :1], q4[:, 1:4] + u_harm, q4[:, 4:]], dim=1)
+            e = engines[lm](positions, box, q4)
+        return e.to(q_harm.dtype)
+
+    return ds_recip
 
 
 def _multi_weights(box, grid_shape, kappa, ck_fns, order, include_gamma):

@@ -1,9 +1,8 @@
 """Engine configuration of the PyTorch port (counterpart of admp_tpu/settings.py).
 
 The dataclasses keep admp_tpu's field names so a configuration reads the same
-in both packages. Only what this port implements is accepted: any other value
-of a field raises ``NotImplementedError`` naming the ROADMAP.md item that
-brings it.
+in both packages, and accept the values admp_tpu accepts; any other value of
+a field raises ``ValueError`` naming the field.
 
 TPU-keyed ``'auto'`` choices resolve the way admp_tpu resolves them off the
 TPU: ``fft_friendly_grid`` and ``lane_align_grid`` are False, i.e. the
@@ -31,10 +30,12 @@ POL_CONV = 10.0
 MAX_N_POL = 30
 
 
-def _not_implemented(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not implemented in admp_tpu_torch yet (ROADMAP.md {item})"
-    )
+# The precision modes (admp_tpu/settings.py:220-254), each field's values
+PRECISIONS = {
+    "spread_precision": (None, "f64"),
+    "realspace_precision": (None, "f64", "f64-near", "f64-all"),
+    "recip_precision": (None, "ds", "f64", "f64-dft"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,8 +82,7 @@ class SCFConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine configuration (admp_tpu/settings.py:169-290), restricted to the
-    port's slice.
+    """Engine configuration (admp_tpu/settings.py:169-348).
 
     pair_kernel / spread_method: ``'auto'`` runs the hand-written CUDA
     kernels (ops/cuda) for float32 tensors on a CUDA device and the plain
@@ -101,6 +101,23 @@ class EngineConfig:
     pairs_i_sorted: accepted for compatibility and ignored. admp_tpu uses it
     to pick a sorted segment-sum backward for the i-side row gather; the
     port's ``index_select`` backward is right for any pair order.
+
+    Precision (the north star: f32 force RMSE < 1e-6 against f64):
+      spread_precision: None or 'f64' (the B-spline weight pipeline in
+        float64, its stencil values rounded to the working dtype before the
+        spread, which on the card still takes K4/K6).
+      realspace_precision: None, 'f64' (the topological-exclusion pairs in
+        float64 on a static exclusion-pair list, masked out of the working
+        pass), 'f64-near' (pairs closer than ``realspace_near_radius``
+        delta-corrected in float64, compacted at ``realspace_near_frac`` of
+        the pair capacity; an overflow makes the energy and forces NaN) or
+        'f64-all' (the whole pair pass in float64).
+      recip_precision: None, 'ds' (the double-single engine of
+        ops/dsrecip.py, power-of-two grids: the force constructor rounds K
+        up), 'f64' (float64 mesh, native float64 FFT, influence and
+        Parseval sum) or 'f64-dft' (the same with explicit-matmul DFTs).
+      compensated_sums: sum the f32 pair energies and Parseval terms with
+        an error far below f32 rounding (utils/accmath.py).
 
     Dispersion (models/dispersion.ADMPDispPmeForce):
       pmax_recip: reciprocal-space pmax (6 drops the C8/C10 k-space
@@ -121,6 +138,8 @@ class EngineConfig:
     spread_order: int = 6
     spread_precision: str | None = None
     realspace_precision: str | None = None
+    realspace_near_radius: float = 2.5
+    realspace_near_frac: float = 0.5
     recip_precision: str | None = None
     compensated_sums: bool = True
     pmax_recip: int | None = None
@@ -138,10 +157,13 @@ class EngineConfig:
                     f"EngineConfig.{name}={value!r}: expected one of "
                     f"{allowed}"
                 )
-        for name in ("recip_precision", "realspace_precision",
-                     "spread_precision"):
-            if getattr(self, name) is not None:
-                _not_implemented(f"EngineConfig.{name}", "queue 1, S4")
+        for name, allowed in PRECISIONS.items():
+            value = getattr(self, name)
+            if value not in allowed:
+                raise ValueError(
+                    f"EngineConfig.{name}={value!r}: expected one of "
+                    f"{allowed}"
+                )
         for name in ("spread_order", "disp_spread_order"):
             if getattr(self, name) not in (4, 6):
                 raise ValueError(f"{name}={getattr(self, name)}: 4 or 6")
@@ -157,3 +179,22 @@ class EngineConfig:
         if self.lane_align_grid == "auto":
             return False
         return bool(self.lane_align_grid)
+
+    @classmethod
+    def high_accuracy(cls, **overrides):
+        """Preset for < 1e-6 relative f32 force RMSE against float64:
+        float64 exclusion pairs, spread weights and reciprocal path
+        (admp_tpu/settings.py:317-330)."""
+        base = dict(spread_precision="f64", realspace_precision="f64",
+                    recip_precision="f64", compensated_sums=True)
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
+    def ds_accuracy(cls, **overrides):
+        """Preset of the double-single reciprocal engine and the float64
+        delta correction of close pairs (admp_tpu/settings.py:332-348)."""
+        base = dict(recip_precision="ds", realspace_precision="f64-near",
+                    compensated_sums=True)
+        base.update(overrides)
+        return cls(**base)

@@ -62,6 +62,21 @@ Phases (any failure exits nonzero; no phase failure is caught):
      kernels and on the plain f64 path (|dE_total| < 2% of KE), then three
      NPT segments (20 Langevin steps, a refresh, one MC barostat move), with
      launch counts per segment;
+  3i. the precision modes (examples/precision_tpu.py's ladder on the main
+     path's box, fixed multipoles, the constructor's kappa and grid; the DS
+     rows at the power-of-two grid it rounds to, 128^3): the DS primitives
+     and FFTs against numpy float64 (add, mul, div, sqrt 1e-13, npow, exp,
+     erfc 1e-10, sum_pairs 1e-14, ds_fft3 and the ds_irfft3 round trip
+     1e-13); each mode's f32 step on the kernels against the plain f64 path
+     at the same grid (plain f32 5e-3; high_accuracy() 5e-6 and |dE| 0.05
+     kJ/mol; 'f64-all' and 'f64-all' + 'f64-dft' 1e-6 and 1e-3;
+     ds_accuracy() 2e-6 and a tenth of plain f32's; spread-f64 and
+     recip-ds logged) and against its own plain f32 route (1e-4), K1/K2
+     launched once per step (twice under 'f64-near', never under
+     'f64-all') and K4/K6 exactly where the mesh is f32; the DS engine alone
+     against the plain f64 reciprocal engine (energy 1e-10, gradients 5e-7);
+     the polarizable exact-adjoint step under ds_accuracy() on the kernels
+     against plain f32 (2e-4), K3 launched;
   4. timing: ms/step of the MD step (median of 3 x 10 steps, CUDA events), of
      the exact-adjoint step (also with adjoint_warmstart) and of the
      full-force-field step, ms per fitting step, ms/step of the 98k step on
@@ -73,7 +88,13 @@ Phases (any failure exits nonzero; no phase failure is caught):
      its plain version, its bound on the card and, where one exists, the one
      PyTorch call that computes the same function (at the 98k shapes too),
      and the host us per call of the launchers of K1-K6 (K4 beside one
-     torch.index_add, K6 beside one torch.take).
+     torch.index_add, K6 beside one torch.take); for the ladder each mode's
+     ms/step (median of 3 x 10 drift steps, the DS rows 3 x 3), the 'ds' and
+     'f64' reciprocal engines' energy+force at 128^3 with their force
+     errors and host syncs (none allowed in the DS engine), the host syncs
+     of a ds_accuracy() step, one profiler window of that step, and the
+     polarizable ds_accuracy() step's time (results in
+     chiprun_out/chip_smoke/precision.json).
 
     python3 chip_smoke.py --launchers DIR
     python3 chip_smoke.py --adjoint DIR
@@ -110,6 +131,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1873,6 +1895,355 @@ def large_path(w, record):
     return forces
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: the precision modes (examples/precision_tpu.py's ladder)
+# ---------------------------------------------------------------------------
+
+# the ladder: name, EngineConfig keywords or preset, its bound on the force
+# relative RMSE against the plain f64 path at the same grid and on |dE|
+# (kJ/mol), None where the row is logged; admp_tpu's CPU tests' bounds
+# (tests/test_precision.py:65-113, tests/test_ds.py:193-235)
+LADDER = [
+    ("plain-f32", dict(compensated_sums=False), 5e-3, None),
+    ("high_accuracy", "high_accuracy", 5e-6, 0.05),
+    ("f64-all", ("high_accuracy", dict(realspace_precision="f64-all")),
+     1e-6, 1e-3),
+    ("f64-all+f64-dft", ("high_accuracy", dict(
+        realspace_precision="f64-all", recip_precision="f64-dft")),
+     1e-6, 1e-3),
+    ("ds_accuracy", "ds_accuracy", 2e-6, None),
+    ("spread-f64", dict(spread_precision="f64"), None, None),
+    ("recip-ds", dict(recip_precision="ds"), None, None),
+]
+# the DS engine alone against the f64 reciprocal (tests/test_ds.py:116-155)
+TOL_DS_E, TOL_DS_G = 1e-10, 5e-7
+# the DS primitives against numpy float64 (tests/test_ds.py:19-63)
+TOL_DS_OPS, TOL_DS_POW, TOL_DS_FN, TOL_DS_SUM = 1e-13, 1e-10, 1e-10, 1e-14
+# ladder rows timed over fewer drift steps: the DS engine runs ~10^4 plain
+# PyTorch operations per step
+N_LADDER_STEPS, N_DS_STEPS = 10, 3
+
+
+def ladder_config(spec, method, **extra):
+    from admp_tpu_torch import EngineConfig
+
+    kw = dict(pair_kernel=method, spread_method=method, **extra)
+    if isinstance(spec, str):
+        return getattr(EngineConfig, spec)(**kw)
+    if isinstance(spec, tuple):
+        return getattr(EngineConfig, spec[0])(**spec[1], **kw)
+    return EngineConfig(**spec, **kw)
+
+
+def ladder_force(w, config, dtype, lpol=False, grid=None):
+    from admp_tpu_torch import ADMPPmeForce
+
+    s = w["sys"]
+    force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                         s["covalent_map"], RC, ETHRESH, lmax=LMAX, lpol=lpol,
+                         config=config, device=w["positions"].device,
+                         dtype=dtype)
+    if grid is not None:
+        force.K1, force.K2, force.K3 = grid
+        force.refresh_calculators()
+    return force
+
+
+def fixed_step(force, w, positions, dtype=torch.float32):
+    c = lambda t: t.to(dtype)  # noqa: E731
+    return force.get_forces(c(positions), c(w["box"]), w["pairs"],
+                            c(w["q_local"]), c(w["scales"]))
+
+
+def check_ds_primitives(dev):
+    """The DS arithmetic and FFTs on the card against numpy float64."""
+    from scipy.special import erfc
+
+    from admp_tpu_torch.ops import dsrecip
+    from admp_tpu_torch.utils import ds
+
+    def rel(got, ref):
+        got = ds.to_f64(got).cpu().numpy()
+        return float(np.max(np.abs(got - ref)
+                            / np.maximum(np.abs(ref), 1e-300)))
+
+    rng = np.random.RandomState(0)
+    a = rng.randn(2000) * np.exp(rng.randn(2000) * 3)
+    b = rng.randn(2000) * np.exp(rng.randn(2000) * 3)
+    A, B = ds.from_f64(a, dev), ds.from_f64(b, dev)
+    got = ds.to_f64(ds.add(A, B)).cpu().numpy()
+    errs = {"add": float(np.max(np.abs(got - (a + b))
+                                / np.maximum(np.abs(a), np.abs(b)))),
+            "mul": rel(ds.mul(A, B), a * b), "div": rel(ds.div(A, B), a / b),
+            "sqrt": rel(ds.sqrt(ds.from_f64(np.abs(a), dev)),
+                        np.sqrt(np.abs(a))),
+            "npow": rel(ds.npow(A, 5), a ** 5)}
+    x = np.linspace(-60.0, 3.0, 3000)
+    y = np.concatenate([np.linspace(1e-6, 0.468, 500),
+                        np.linspace(0.469, 3.99, 1500),
+                        np.linspace(4.0, 7.0, 500)])
+    errs["exp"] = rel(ds.exp(ds.from_f64(x, dev)), np.exp(x))
+    errs["erfc"] = rel(ds.erfc(ds.from_f64(y, dev)), erfc(y))
+    c = np.random.RandomState(1).randn(4097) * np.exp(
+        np.random.RandomState(2).randn(4097) * 4)
+    s = float(ds.to_f64(ds.sum_pairs(ds.from_f64(c, dev))))
+    errs["sum_pairs"] = abs(s - c.sum()) / np.abs(c).sum()
+    m = np.random.RandomState(3).randn(32, 64, 128)
+    re, im = dsrecip.ds_fft3(ds.from_f64(m, dev),
+                             ds.from_f64(np.zeros_like(m), dev))
+    ref = np.fft.fftn(m)
+    got = ds.to_f64(re).cpu().numpy() + 1j * ds.to_f64(im).cpu().numpy()
+    errs["ds_fft3"] = float(np.abs(got - ref).max() / np.abs(ref).max())
+    back = ds.to_f64(dsrecip.ds_irfft3(*dsrecip.ds_rfft3(
+        ds.from_f64(m, dev)))).cpu().numpy()
+    errs["ds_irfft3(ds_rfft3)"] = float(np.abs(back - m.size * m).max()
+                                        / (m.size * np.abs(m).max()))
+    log("phase 3i DS primitives vs numpy float64 (max relative): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    bounds = dict(add=TOL_DS_OPS, mul=TOL_DS_OPS, div=TOL_DS_OPS,
+                  sqrt=TOL_DS_OPS, npow=TOL_DS_POW, exp=TOL_DS_FN,
+                  erfc=TOL_DS_FN, sum_pairs=TOL_DS_SUM)
+    bounds["ds_fft3"] = bounds["ds_irfft3(ds_rfft3)"] = TOL_DS_OPS
+    for k, v in errs.items():
+        require(v < bounds[k], f"DS {k} error {v} >= {bounds[k]}")
+    return errs
+
+
+def ladder_path(w):
+    """The ladder on the main path's box: each mode's f32 energy+force step
+    on the kernels against the plain f64 path at the same grid and against
+    its own plain f32 route, with launch counts; returns the kernel-route
+    forces by mode for phase 4 and the results."""
+    dev = w["positions"].device
+    oracles, results, forces = {}, {}, {}
+    for name, spec, tol_f, tol_e in LADDER:
+        kern = ladder_force(w, ladder_config(spec, "auto"), torch.float32)
+        grid = (kern.K1, kern.K2, kern.K3)
+        if grid not in oracles:
+            oracle = ladder_force(w, ladder_config({}, "torch"),
+                                  torch.float64, grid=grid)
+            oracle.kappa = kern.kappa
+            oracle.refresh_calculators()
+            oracles[grid] = fixed_step(oracle, w, w["positions"],
+                                       torch.float64)
+        e64, g64 = oracles[grid]
+        reset_counts()
+        e_k, g_k = fixed_step(kern, w, w["positions"])
+        counts = read_counts()
+        plain = ladder_force(w, ladder_config(spec, "torch"), torch.float32)
+        e_p, g_p = fixed_step(plain, w, w["positions"])
+        err = rel_rmse(g_k, g64)
+        de = float(e_k) - float(e64)
+        dkp = rel_rmse(g_k, g_p)
+        results[name] = dict(grid=grid, force_rel_rmse=err, dE=de,
+                             plain_f32_force_rel_rmse=rel_rmse(g_p, g64),
+                             kernel_vs_plain=dkp,
+                             launches={k: counts[k] for k in (
+                                 "pair_fwd", "pair_bwd", "spread", "gather")})
+        log(f"phase 3i ladder {name} at {grid}: force rel RMSE vs plain f64 "
+            f"{err:.3e} (bound {tol_f}), dE {de:+.3e} kJ/mol (bound "
+            f"{tol_e}); plain f32 route {rel_rmse(g_p, g64):.3e}; kernel vs "
+            f"plain f32 route {dkp:.3e}; launches "
+            f"{results[name]['launches']}")
+        require(bool(torch.isfinite(g_k).all()) and bool(torch.isfinite(e_k)),
+                f"ladder {name}: non-finite energy or forces")
+        require(dkp < TOL_STEP_F, f"ladder {name}: kernel vs plain f32 {dkp}")
+        if tol_f is not None:
+            require(err < tol_f, f"ladder {name}: force error {err} >= {tol_f}")
+        if tol_e is not None:
+            require(abs(de) < tol_e, f"ladder {name}: |dE| {de} >= {tol_e}")
+        # K1/K2 once per step; twice under 'f64-near' (the main pass and the
+        # near pass); never under 'f64-all' (every pair in float64)
+        want = {"f64-all": 0, "f64-near": 2}.get(
+            kern.config.realspace_precision, 1)
+        require(counts["pair_fwd"] == want and counts["pair_bwd"] == want,
+                f"ladder {name}: K1/K2 launched {counts['pair_fwd']}/"
+                f"{counts['pair_bwd']} times, want {want}")
+        f32_mesh = kern.config.recip_precision is None
+        require((counts["spread"] > 0 and counts["gather"] > 0) == f32_mesh,
+                f"ladder {name}: K4/K6 launched {counts['spread']}/"
+                f"{counts['gather']} times with an f32 mesh {f32_mesh}")
+        forces[name] = kern
+    ds = results["ds_accuracy"]
+    require(ds["force_rel_rmse"] < results["plain-f32"]["force_rel_rmse"] / 10,
+            "ds_accuracy is not a tenth of plain f32's error")
+    return forces, results
+
+
+def ds_recip_inputs(w, kappa, grid):
+    """The main path box's global multipoles (frames of the f32 positions)
+    and the two engines at ``grid``: the DS engine and the plain f64 one."""
+    from admp_tpu_torch.ops.dsrecip import make_ds_pme_recip
+    from admp_tpu_torch.ops.frames import local_frames_components
+    from admp_tpu_torch.ops.harmonics import rot_local2global_components
+    from admp_tpu_torch.ops.influence import ck_1
+    from admp_tpu_torch.ops.reciprocal import make_pme_recip
+    from admp_tpu_torch.utils.constants import DIELECTRIC
+
+    s, dev = w["sys"], w["positions"].device
+    frames = local_frames_components(
+        w["positions"], w["box"], torch.as_tensor(s["axis_types"], device=dev),
+        torch.as_tensor(s["axis_indices"], device=dev))
+    q = rot_local2global_components(w["q_local"], frames, LMAX).detach()
+    engines = {
+        "ds": make_ds_pme_recip(kappa, grid, LMAX, DIELECTRIC),
+        "f64": make_pme_recip(ck_1, kappa, grid, LMAX, DIELECTRIC,
+                              recip_precision="f64"),
+        "plain64": make_pme_recip(ck_1, kappa, grid, LMAX, DIELECTRIC,
+                                  spread_method="torch")}
+    return q, engines
+
+
+def count_syncs(fn):
+    """Host syncs that fn() makes on the card: torch.cuda's sync debug mode
+    warns once for each synchronizing call (a device-to-host read, a
+    host-to-device copy from pageable memory, a stream synchronize)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing CUDA operation" in str(c.message)
+               for c in caught)
+
+
+def recip_energy_force(engine, w, q, dtype):
+    p = w["positions"].to(dtype).requires_grad_(True)
+    qq = q.to(dtype).requires_grad_(True)
+    e = engine(p, w["box"].to(dtype), qq)
+    gp, gq = torch.autograd.grad(e, (p, qq))
+    return e.detach(), gp, gq
+
+
+def ds_engine_path(w, kappa, grid):
+    """The DS engine alone against the plain f64 reciprocal engine on the
+    main path's positions and global multipoles at the DS grid."""
+    q, engines = ds_recip_inputs(w, kappa, grid)
+    e_ds, gp, gq = recip_energy_force(engines["ds"], w, q, torch.float32)
+    e64, rp, rq = recip_energy_force(engines["plain64"], w, q, torch.float64)
+    de = abs(float(e_ds) - float(e64)) / abs(float(e64))
+    errs = (rel_rmse(gp, rp), rel_rmse(gq, rq))
+    log(f"phase 3i DS engine alone at {grid}: energy rel {de:.3e} (bound "
+        f"{TOL_DS_E}), dE/dx rel RMSE {errs[0]:.3e}, dE/dq {errs[1]:.3e} "
+        f"(bound {TOL_DS_G}) vs the plain f64 engine")
+    require(de < TOL_DS_E, f"DS engine energy {de}")
+    require(max(errs) < TOL_DS_G, f"DS engine gradients {errs}")
+    return dict(energy_rel=de, dx_rel_rmse=errs[0], dq_rel_rmse=errs[1])
+
+
+def ds_polarizable_path(w):
+    """The polarizable exact-adjoint step (SCFConfig()) under ds_accuracy()
+    on the kernels against the same configuration on the plain f32 path;
+    K3 must launch."""
+    from admp_tpu_torch import SCFConfig
+
+    scf = SCFConfig()
+    kern = ladder_force(w, ladder_config("ds_accuracy", "auto", scf=scf),
+                        torch.float32, lpol=True)
+    plain = ladder_force(w, ladder_config("ds_accuracy", "torch", scf=scf),
+                         torch.float32, lpol=True)
+    reset_counts()
+    e_k, g_k = kern.get_forces(*pol_args(w, w["positions"], torch.float32))
+    counts = read_counts()
+    e_p, g_p = plain.get_forces(*pol_args(w, w["positions"], torch.float32))
+    df = rel_rmse(g_k, g_p)
+    log(f"phase 3i polarizable ds_accuracy() exact adjoint at "
+        f"{(kern.K1, kern.K2, kern.K3)}: E {float(e_k):.6f} vs plain f32 "
+        f"{float(e_p):.6f}, force rel RMSE {df:.3e} (bound {TOL_ADJ_F}), "
+        f"PCG iterations {kern.n_cycle} / {plain.n_cycle}; launches "
+        f"{counts}")
+    require(kern.lconverg and plain.lconverg, "ds_accuracy SCF did not converge")
+    require(bool(torch.isfinite(g_k).all()), "ds_accuracy pol forces")
+    require(df < TOL_ADJ_F, f"ds_accuracy exact adjoint forces {df}")
+    require(counts["pair_hvp"] > 0 and counts["pair_fwd"] > 0,
+            "K3 or K1 did not launch on the ds_accuracy exact adjoint")
+    return kern, dict(force_rel_rmse=df, launches=counts["pair_hvp"])
+
+
+def precision_path(w):
+    """Phase 3i; returns what phase 4 times and the results."""
+    out = {"ds_primitives": check_ds_primitives(w["positions"].device)}
+    forces, out["ladder"] = ladder_path(w)
+    ds = forces["ds_accuracy"]
+    out["ds_engine"] = ds_engine_path(w, ds.kappa, (ds.K1, ds.K2, ds.K3))
+    pol, out["ds_polarizable"] = ds_polarizable_path(w)
+    return forces, pol, out
+
+
+def time_precision(forces, pol, w, card, out):
+    """Phase 4 of the ladder: ms/step of each mode on the kernels (median of
+    N_REPEATS x N_LADDER_STEPS drift steps, forces consumed; the DS rows
+    over N_DS_STEPS), the DS and f64 reciprocal engines' energy+force at
+    the DS grid with their force errors, and one profiler window of a
+    ds_accuracy() step."""
+    def runner(force):
+        def run(n):
+            p = w["positions"]
+            for _ in range(n):
+                _, g = fixed_step(force, w, p)
+                p = p + w["drift"] + 0.0 * g
+            return [0] * n
+        return run
+
+    timing = {}
+    for name, force in forces.items():
+        n = (N_DS_STEPS if force.config.recip_precision == "ds"
+             else N_LADDER_STEPS)
+        ms, times, _ = time_runs(runner(force), n)
+        timing[name] = dict(ms=ms, times=times, steps=n)
+        log(f"phase 4 [{card}]: ladder {name}: {ms:.3f} ms/step (median of "
+            f"{N_REPEATS} x {n} steps: {[round(t, 3) for t in times]})")
+    ds = forces["ds_accuracy"]
+    grid = (ds.K1, ds.K2, ds.K3)
+    q, engines = ds_recip_inputs(w, ds.kappa, grid)
+    _, rp, _ = recip_energy_force(engines["plain64"], w, q, torch.float64)
+    recip = {}
+    for name in ("ds", "f64"):
+        eng = engines[name]
+        ms, _ = cuda_time_ms(
+            lambda eng=eng: recip_energy_force(eng, w, q, torch.float32),
+            n=5, warmup=1)
+        _, gp, _ = recip_energy_force(eng, w, q, torch.float32)
+        syncs = count_syncs(
+            lambda eng=eng: recip_energy_force(eng, w, q, torch.float32))
+        recip[name] = dict(ms=ms, force_rel_rmse=rel_rmse(gp, rp),
+                           host_syncs=syncs)
+    log(f"phase 4 [{card}]: reciprocal energy+force at {grid} on the main "
+        f"path's box: 'ds' {recip['ds']['ms']:.3f} ms (dE/dx rel RMSE "
+        f"{recip['ds']['force_rel_rmse']:.3e} vs plain f64, "
+        f"{recip['ds']['host_syncs']} host syncs), 'f64' "
+        f"{recip['f64']['ms']:.3f} ms ({recip['f64']['force_rel_rmse']:.3e}, "
+        f"{recip['f64']['host_syncs']} host syncs)")
+    require(recip["ds"]["host_syncs"] == 0,
+            f"the DS engine synchronizes {recip['ds']['host_syncs']} times "
+            "per energy+force (its constants belong on the card)")
+    step_syncs = count_syncs(lambda: runner(ds)(1))
+    log(f"phase 4 [{card}]: host syncs in one ds_accuracy() step: "
+        f"{step_syncs}")
+    wall, device_ms, n_kernels, top = profile_steps(runner(ds), "ds_accuracy",
+                                                    n_steps=1)
+    log(f"profile ds_accuracy (1 warm step, profiler on): {wall:.3f} ms/step "
+        f"wall, {device_ms:.3f} ms/step device busy "
+        f"({100 * device_ms / wall:.1f}%), {n_kernels:.0f} device "
+        "kernels/step; top by device time:")
+    for key, ms_k, count in top:
+        log(f"  {ms_k:8.4f} ms/step  x{count:<4d} {key}")
+    ms_pol, times_pol, _ = time_runs(
+        lambda n: [s[1] for s in run_steps(pol, w, w["positions"], n)[1]], 1)
+    log(f"phase 4 [{card}]: polarizable ds_accuracy() exact-adjoint step "
+        f"{ms_pol:.3f} ms/step (median of {N_REPEATS} x 1 steps: "
+        f"{[round(t, 3) for t in times_pol]})")
+    out.update(timing=timing, recip=recip, pol_ms=ms_pol,
+               ds_step_host_syncs=step_syncs,
+               profile=dict(wall_ms=wall, device_ms=device_ms,
+                            kernels=n_kernels), card=card)
+    (OUT_DIR / "precision.json").write_text(json.dumps(out, indent=1))
+
+
+
 def time_runs(run, n_steps=N_STEPS):
     """Median ms/step over N_REPEATS calls of run(n_steps), CUDA events
     around each call (each ends in a synchronize); run returns a list of the
@@ -2624,6 +2995,8 @@ def main():
     log("phase 3g: front end ok")
     md_kern, md_plain = md_path(w)
     log("phase 3h: MD ok")
+    prec_forces, prec_pol, prec = precision_path(w)
+    log("phase 3i: precision modes ok")
 
     ms, times, iters = time_steps(force, w)
     ms_plain, times_plain, _ = time_steps(plain32, w)
@@ -2680,6 +3053,7 @@ def main():
         f"path {ms_npt_plain:.3f} ms/step "
         f"({[round(t, 3) for t in times_npt_plain]})")
     time_front_end(front, w, card)
+    time_precision(prec_forces, prec_pol, w, card, prec)
     for name, run in (
             ("md", lambda n: run_steps(force, w, w["positions"], n)),
             ("adjoint", lambda n: run_steps(adj, w, w["positions"], n)),

@@ -30,7 +30,13 @@ device; K4 at N = 0 (zeros) and through its C entry into a mesh filled with
 NaN (the entry zeroes its mesh). K3 on all seven (kind, lmax). K2 and K3
 also on tables crafted onto each branch of the pair energy (degenerate
 pairs, the frame guard, masked pairs, zero-pol sites, the pscale sigmoid,
-the Thole cut).
+the Thole cut). The precision modes: the double-single arithmetic, FFTs and
+engine (plain PyTorch operations, where a fused multiply-add or a flush to
+zero would break the error-free transforms) against float64 with admp_tpu's
+bounds (tests/test_ds.py), the DS mesh's quantized pass the same bits in any
+atom order under the card's atomics, and the kernel route of each
+real-space and spread mode against its plain f32 route (forces 1e-4), K1
+launched twice per step under 'f64-near'.
 """
 
 import numpy as np
@@ -813,3 +819,159 @@ def test_langevin_step_and_barostat_on_kernels(dev):
     assert bool(mv_k[2]) == bool(mv_p[2])
     assert _rel(mv_k[1], mv_p[1]) < 1e-6
     assert abs(float(mv_k[3]) - float(mv_p[3])) <= 1e-5 * abs(float(mv_p[3]))
+
+
+# ---------------------------------------------------------------------------
+# the precision modes on the card: the DS arithmetic and engine (plain
+# PyTorch ops, where an FMA or a flush to zero would break the error-free
+# transforms) against float64, and the modes' kernel routes
+# ---------------------------------------------------------------------------
+
+
+def _ds_operands(dev):
+    from admp_tpu_torch.utils import ds
+
+    rng = np.random.RandomState(0)
+    a = rng.randn(2000) * np.exp(rng.randn(2000) * 3)
+    b = rng.randn(2000) * np.exp(rng.randn(2000) * 3)
+    return ds, a, b, ds.from_f64(a, dev), ds.from_f64(b, dev)
+
+
+def _relmax(got, ref):
+    got = got.cpu().numpy()
+    return float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-300)))
+
+
+def test_ds_primitives_on_the_card(dev):
+    """admp_tpu's bounds (tests/test_ds.py) against numpy float64."""
+    from scipy.special import erfc
+
+    ds, a, b, A, B = _ds_operands(dev)
+    f64 = ds.to_f64
+    add = (f64(ds.add(A, B)).cpu().numpy() - (a + b))
+    assert np.max(np.abs(add) / np.maximum(np.abs(a), np.abs(b))) < 1e-13
+    assert _relmax(f64(ds.mul(A, B)), a * b) < 1e-13
+    assert _relmax(f64(ds.div(A, B)), a / b) < 1e-13
+    assert _relmax(f64(ds.sqrt(ds.from_f64(np.abs(a), dev))),
+                   np.sqrt(np.abs(a))) < 1e-13
+    assert _relmax(f64(ds.npow(A, 5)), a ** 5) < 1e-10
+    x = np.linspace(-60.0, 3.0, 3000)
+    assert _relmax(f64(ds.exp(ds.from_f64(x, dev))), np.exp(x)) < 1e-10
+    y = np.concatenate([np.linspace(1e-6, 0.468, 500),
+                        np.linspace(0.469, 3.99, 1500),
+                        np.linspace(4.0, 7.0, 500)])
+    assert _relmax(f64(ds.erfc(ds.from_f64(y, dev))), erfc(y)) < 1e-10
+    c = np.random.RandomState(1).randn(4097) * np.exp(
+        np.random.RandomState(2).randn(4097) * 4)
+    s = float(f64(ds.sum_pairs(ds.from_f64(c, dev))))
+    assert abs(s - c.sum()) / np.abs(c).sum() < 1e-14
+
+
+def test_ds_ffts_on_the_card(dev):
+    from admp_tpu_torch.ops import dsrecip
+    from admp_tpu_torch.utils import ds
+
+    rng = np.random.RandomState(3)
+    m = rng.randn(16, 32, 64)
+    re, im = dsrecip.ds_fft3(ds.from_f64(m, dev),
+                             ds.from_f64(np.zeros_like(m), dev))
+    ref = np.fft.fftn(m)
+    got = ds.to_f64(re).cpu().numpy() + 1j * ds.to_f64(im).cpu().numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-13
+    s_re, s_im = dsrecip.ds_rfft3(ds.from_f64(m, dev))
+    back = ds.to_f64(dsrecip.ds_irfft3(s_re, s_im)).cpu().numpy()
+    assert np.abs(back - m.size * m).max() / (m.size * np.abs(m).max()) \
+        < 1e-13
+
+
+@pytest.mark.parametrize("n,k,bound", [(48, 16, 1e-10), (200, 32, 3e-10)])
+@pytest.mark.parametrize("lmax", [0, 1, 2])
+def test_ds_recip_on_the_card_vs_f64(dev, lmax, n, k, bound):
+    """The DS engine against the float64 reciprocal engine on the same
+    f32-representable inputs: position and multipole gradients 5e-7
+    relative RMSE, and the energy within ``bound`` relative. admp_tpu's
+    bound, 1e-10, on admp_tpu's inputs (tests/test_ds.py:116-155: 48 atoms,
+    16^3); at 200 atoms on 32^3, 3e-10: there both packages' DS engines sit
+    1.87e-10 from float64 at lmax 2 on the CPU (1.4e-11 at lmax 0, 3.4e-12
+    at lmax 1), bit for bit alike, from the residual scatter's rounding,
+    which the card's atomic adds reorder."""
+    from admp_tpu_torch.ops.dsrecip import make_ds_pme_recip
+    from admp_tpu_torch.ops.influence import ck_1
+    from admp_tpu_torch.ops.reciprocal import make_pme_recip
+    from admp_tpu_torch.utils.constants import DIELECTRIC
+
+    rng = np.random.RandomState(0)
+    box = np.eye(3, dtype=np.float32) * 14.0
+    pos = (rng.rand(n, 3) * 14.0).astype(np.float32)
+    q = rng.randn(n, (lmax + 1) ** 2).astype(np.float32)
+    out = []
+    for engine, dtype in (
+            (make_ds_pme_recip(0.6, (k, k, k), lmax), torch.float32),
+            (make_pme_recip(ck_1, 0.6, (k, k, k), lmax, DIELECTRIC,
+                            spread_method="torch"), torch.float64)):
+        p = torch.tensor(pos, device=dev, dtype=dtype, requires_grad=True)
+        qq = torch.tensor(q, device=dev, dtype=dtype, requires_grad=True)
+        e = engine(p, torch.tensor(box, device=dev, dtype=dtype), qq)
+        out.append((float(e.detach()),) + torch.autograd.grad(e, (p, qq)))
+    (e_ds, gp, gq), (e64, rp, rq) = out
+    assert abs(e_ds - e64) <= bound * abs(e64)
+    assert _rel(gp, rp) < 5e-7
+    assert _rel(gq, rq) < 5e-7
+
+
+def test_ds_quantized_scatter_is_exact_under_atomics(dev):
+    """The quantized pass of the DS mesh: the same bits in any atom order,
+    with the card's atomic adds."""
+    from admp_tpu_torch.ops import dsrecip
+
+    rng = np.random.RandomState(4)
+    n, grid = 300, (32, 32, 32)
+    pos = torch.tensor(rng.rand(n, 3) * 14.0, device=dev, dtype=torch.float32)
+    box = torch.eye(3, device=dev) * 14.0
+    q = torch.tensor(rng.randn(n, 9), device=dev, dtype=torch.float32)
+    perm = torch.tensor(rng.permutation(n), device=dev)
+    meshes = []
+    for order in (torch.arange(n, device=dev), perm):
+        m_u0, u0, binv = dsrecip._ds_mesh_coords(pos[order], box, grid)
+        mix = dsrecip._ds_mixing_matrix(binv, grid, 2)
+        qp = dsrecip._ds_q_points(dsrecip._ds_alpha(q[order], mix, 2),
+                                  dsrecip.ds_spline_tables(u0)[:3], 2)
+        q1, _ = dsrecip._fp_quantize(*qp)
+        flat = dsrecip._flat_stencil(m_u0, grid).reshape(-1)
+        meshes.append(torch.zeros(32 ** 3, device=dev).index_add_(
+            0, flat, q1.reshape(-1)))
+    assert torch.equal(meshes[0], meshes[1])
+
+
+@pytest.mark.parametrize("mode", ["none", "f64", "f64-near", "spread-f64"])
+def test_precision_modes_take_the_kernels(dev, mode):
+    """Each mode's kernel route against its plain f32 route (forces 1e-4
+    relative RMSE; energy 1e-5 of the largest term: the total, -103
+    kJ/mol, is a residue of ~1e4-magnitude terms), with K1 and K4 launched,
+    K1 twice per step under 'f64-near' (the main pass and the near pass)."""
+    s, pos, box, q, _, pairs = _system(dev)
+    sc = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0], device=dev)
+    over = {"none": {}, "f64": dict(realspace_precision="f64"),
+            "f64-near": dict(realspace_precision="f64-near"),
+            "spread-f64": dict(spread_precision="f64")}[mode]
+    out = {}
+    for method in ("auto", "torch"):
+        cfg = EngineConfig(pair_kernel=method, spread_method=method, **over)
+        force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                             s["covalent_map"], 4.0, 1e-4, 2, config=cfg,
+                             device=dev)
+        k1, k4 = P.launch_pair_fwd.launches, S.launch_spread.launches
+        out[method] = force.get_forces(pos, box, pairs, q, sc)
+        k1 = P.launch_pair_fwd.launches - k1
+        k4 = S.launch_spread.launches - k4
+        if method == "auto":
+            assert k1 == (2 if mode == "f64-near" else 1)
+            assert k4 == 1
+        else:
+            assert k1 == k4 == 0
+        if method == "torch":
+            terms = force.get_metrics(pos, box, pairs, q, sc)
+    (e_k, g_k), (e_p, g_p) = out["auto"], out["torch"]
+    scale = max(abs(float(terms[k])) for k in ("e_real", "e_recip", "e_self"))
+    assert abs(float(e_k) - float(e_p)) <= 1e-5 * scale
+    assert _rel(g_k, g_p) < 1e-4

@@ -180,10 +180,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unimplemented_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(recip_precision="f64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(realspace_precision="f64-near")
+    # the precision modes are ported (tests/test_torch_precision.py); a
+    # value admp_tpu does not know is refused, naming the field
+    assert EngineConfig(recip_precision="f64").recip_precision == "f64"
+    with pytest.raises(ValueError, match="recip_precision"):
+        EngineConfig(recip_precision="f128")
+    with pytest.raises(ValueError, match="realspace_precision"):
+        EngineConfig(realspace_precision="f64-far")
     with pytest.raises(ValueError):
         EngineConfig(pair_kernel="pallas")
     # the Jacobi method and the warm adjoint are ported

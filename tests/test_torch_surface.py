@@ -165,10 +165,11 @@ def test_update_env_and_compatibility_keywords():
                       device="cpu")
     assert f1.scf_config == f2.scf_config == scf
     assert f2.config.spread_order == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
-                     s["covalent_map"], 4.0, 1e-4, 2, spread_precision="f64",
-                     device="cpu")
+    # spread_precision: the compatibility keyword reaches the config
+    f3 = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                      s["covalent_map"], 4.0, 1e-4, 2, spread_precision="f64",
+                      device="cpu")
+    assert f3.config.spread_precision == "f64"
     # convert_state and force_from_jax still carry a force across
     tf2 = force_from_jax(jforce, s["box"], device="cpu", dtype=torch.float64,
                          spread_method="torch")

@@ -11,6 +11,9 @@ terms (md.py: NVE, Langevin, the MC barostat) and force-field fitting
 (EngineConfig.high_accuracy(), ds_accuracy(): float64 exclusion, near-pair
 and all-pair real-space passes, float64 spread weights, the f64 and f64-dft
 reciprocal paths and the double-single reciprocal engine of ops/dsrecip.py),
+and the sharded layer on torch.distributed (parallel/: halo-exchange
+spreading, the pencil FFT, the sharded energy factories, utils/comm.py;
+sharded_cell_pairs; entry.py's single-device step and multi-rank dry run),
 with its pair, spread and gather stages on
 hand-written CUDA kernels (ops/cuda, sources in csrc/) for float32 tensors on
 the card, and on plain PyTorch elsewhere. The entry points work on the card
@@ -35,6 +38,7 @@ from admp_tpu_torch.ops.neighborlist import (
     neighbor_list_cell,
     neighbor_list_dense,
     refresh_neighbor_list,
+    sharded_cell_pairs,
     update_neighbor_list,
 )
 from admp_tpu_torch.ops.shortrange import (
@@ -60,6 +64,16 @@ from admp_tpu_torch.api import Hamiltonian
 from admp_tpu_torch.systems import water_system
 from admp_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
 from admp_tpu_torch.fitting import FitResult, energy_force_loss, fit, stack_batch
+from admp_tpu_torch.parallel import (
+    fft3d_pencil,
+    make_sharded_batch_energy,
+    make_sharded_disp_energy,
+    make_sharded_ff_energy,
+    make_sharded_pairwise_energy,
+    make_sharded_pme_energy,
+    make_sharded_pol_energy,
+    rfft3d_pencil,
+)
 from admp_tpu_torch.utils.constants import DIELECTRIC
 
 # the reference's name (admp/pairwise.py:94)
@@ -86,18 +100,26 @@ __all__ = [
     "energy_disp_pme",
     "energy_force_loss",
     "energy_pme",
+    "fft3d_pencil",
     "fit",
     "generate_pairwise_interaction",
     "harm_dipole_to_cart",
     "make_langevin_step",
     "make_mc_barostat",
     "make_nve_step",
+    "make_sharded_batch_energy",
+    "make_sharded_disp_energy",
+    "make_sharded_ff_energy",
+    "make_sharded_pairwise_energy",
+    "make_sharded_pme_energy",
+    "make_sharded_pol_energy",
     "neighbor_list_cell",
     "neighbor_list_dense",
     "quad_harm_to_tensor",
     "quad_tensor_to_harm",
     "refresh_neighbor_list",
     "restore_checkpoint",
+    "rfft3d_pencil",
     "rot_dipole_global2local",
     "rot_global2local",
     "rot_local2global",
@@ -105,6 +127,7 @@ __all__ = [
     "run_nve",
     "save_checkpoint",
     "setup_ewald_parameters",
+    "sharded_cell_pairs",
     "stack_batch",
     "tt_damping_qq_c6_kernel",
     "update_neighbor_list",

@@ -17,7 +17,9 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from admp_tpu_torch.utils import comm
 from admp_tpu_torch.utils.linalg3 import inv3x3
 
 
@@ -148,7 +150,8 @@ def _cell_ids(positions, box, n_cells):
     return (cx * ncy + cy) * ncz + cz
 
 
-def _cell_candidates(positions, box, cutoff, n_cells, cell_capacity):
+def _cell_candidates(positions, box, cutoff, n_cells, cell_capacity,
+                     rows=None):
     """(good, cand, bucket_overflow): the (n, 14 cell_capacity) candidate
     partners of every atom from the half stencil and the mask of those that
     are real in-cutoff pairs, each counted once.
@@ -156,7 +159,8 @@ def _cell_candidates(positions, box, cutoff, n_cells, cell_capacity):
     Atoms are sorted into cell order; each cell's window of the sorted arrays
     fills one row of an id table and a coordinate table, and every cell
     gathers its 14 stencil rows once, so an atom takes one wide row of its
-    cell."""
+    cell. ``rows`` (m,): the i-atoms to take, in that order, instead of
+    every atom; an entry n is a padding row with no partner."""
     n = positions.shape[0]
     dev = positions.device
     ncx, ncy, ncz = n_cells
@@ -182,11 +186,17 @@ def _cell_candidates(positions, box, cutoff, n_cells, cell_capacity):
     neigh_id = ((torch.remainder(neigh[..., 0], ncx) * ncy
                  + torch.remainder(neigh[..., 1], ncy)) * ncz
                 + torch.remainder(neigh[..., 2], ncz))  # (ncell, 14)
-    cand = ids[neigh_id].reshape(n_cell_total, -1)[cell_id]  # (n, S)
-    pts = coords[neigh_id].reshape(n_cell_total, -1, 3)[cell_id]  # (n, S, 3)
-    dx = pts[..., 0] - positions[:, 0:1]
-    dy = pts[..., 1] - positions[:, 1:2]
-    dz = pts[..., 2] - positions[:, 2:3]
+    if rows is None:
+        i_ids = torch.arange(n, device=dev)
+        row_cell, row_pos = cell_id, positions
+    else:
+        r_safe = torch.clamp(rows, max=n - 1)
+        i_ids, row_cell, row_pos = rows, cell_id[r_safe], positions[r_safe]
+    cand = ids[neigh_id].reshape(n_cell_total, -1)[row_cell]  # (m, S)
+    pts = coords[neigh_id].reshape(n_cell_total, -1, 3)[row_cell]  # (m, S, 3)
+    dx = pts[..., 0] - row_pos[:, 0:1]
+    dy = pts[..., 1] - row_pos[:, 1:2]
+    dz = pts[..., 2] - row_pos[:, 2:3]
     s1 = dx * box_inv[0, 0] + dy * box_inv[1, 0] + dz * box_inv[2, 0]
     s2 = dx * box_inv[0, 1] + dy * box_inv[1, 1] + dz * box_inv[2, 1]
     s3 = dx * box_inv[0, 2] + dy * box_inv[1, 2] + dz * box_inv[2, 2]
@@ -197,27 +207,38 @@ def _cell_candidates(positions, box, cutoff, n_cells, cell_capacity):
     wy = s1 * box[0, 1] + s2 * box[1, 1] + s3 * box[2, 1]
     wz = s1 * box[0, 2] + s2 * box[1, 2] + s3 * box[2, 2]
     r2 = wx * wx + wy * wy + wz * wz
-    i_ids = torch.arange(n, device=dev)[:, None]
+    i_ids = i_ids[:, None]
     # own cell (the first cell_capacity slots): i < j; other cells: i != j
     own = (torch.arange(cand.shape[1], device=dev) < cell_capacity)[None]
     dedupe = torch.where(own, cand > i_ids, cand != i_ids)
-    good = dedupe & (cand < n) & (r2 < cutoff * cutoff)
+    good = dedupe & (cand < n) & (i_ids < n) & (r2 < cutoff * cutoff)
     return good, cand, bucket_overflow
 
 
 def _cell_pairs(positions, box, cutoff, n_cells, cell_capacity, capacity,
                 sort_i=True):
     """(pairs (capacity, 2), overflow): the cell-list search at static
-    shapes. Compaction in two stages: each row's partner ids, invalid slots
-    set to n, are sorted and cut to _ROW_K; the rows then go to the flat
-    list by their offsets (cumsum), the slot -> row map by a scatter of the
-    row starts and a running maximum. Each pair comes out as (min, max);
-    with ``sort_i`` one stable sort of the i column restores the global
-    order that the swap broke (padding sorts last)."""
+    shapes, compacted by ``_compact_rows``. Each pair comes out as
+    (min, max); with ``sort_i`` one stable sort of the i column restores
+    the global order that the swap broke (padding sorts last)."""
     n = positions.shape[0]
-    dev = positions.device
     good, cand, bucket_overflow = _cell_candidates(positions, box, cutoff,
                                                    n_cells, cell_capacity)
+    pairs, overflow = _compact_rows(good, cand, n, capacity)
+    if sort_i:
+        pairs = pairs[torch.argsort(pairs[:, 0], stable=True)]
+    return pairs, overflow | bucket_overflow
+
+
+def _compact_rows(good, cand, n, capacity, rows=None):
+    """(pairs (capacity, 2), overflow) of the candidate rows' good entries,
+    row by row; row r's i-atom is ``rows[r]`` (r itself when None). Two
+    stages: each row's partner ids, invalid slots set to n, are sorted and
+    cut to _ROW_K; the rows then go to the flat list by their offsets
+    (cumsum), the slot -> row map by a scatter of the row starts and a
+    running maximum. Each pair comes out as (min, max), padding (n, n)."""
+    dev = good.device
+    m = good.shape[0]
     k_row = min(_ROW_K, cand.shape[1])
     rowcnt = good.sum(dim=1)
     n_found = rowcnt.sum()
@@ -226,21 +247,19 @@ def _cell_pairs(positions, box, cutoff, n_cells, cell_capacity, capacity,
     offs = torch.cat([rowcnt.new_zeros(1), torch.cumsum(rowcnt, 0)])
     mark = torch.zeros(capacity, dtype=torch.long, device=dev).scatter_reduce(
         0, torch.clamp(offs[:-1], max=capacity - 1),
-        torch.arange(n, device=dev), reduce="amax")
+        torch.arange(m, device=dev), reduce="amax")
     r = torch.cummax(mark, 0).values
     p_iota = torch.arange(capacity, device=dev)
     k = p_iota - offs[r]
     valid = p_iota < offs[-1]
-    jj_raw = cj.reshape(-1)[torch.clamp(r, max=n - 1) * k_row
-                            + torch.clamp(k, 0, k_row - 1)]
+    r_safe = torch.clamp(r, max=m - 1)
+    jj_raw = cj.reshape(-1)[r_safe * k_row + torch.clamp(k, 0, k_row - 1)]
+    i_raw = r if rows is None else rows[r_safe]
     fill = torch.full_like(r, n)
-    ii = torch.where(valid, torch.minimum(r, jj_raw), fill)
-    jj = torch.where(valid, torch.maximum(r, jj_raw), fill)
-    pairs = torch.stack([ii, jj], dim=-1)
-    if sort_i:
-        pairs = pairs[torch.argsort(ii, stable=True)]
-    overflow = (n_found > capacity) | bucket_overflow | torch.any(rowcnt > k_row)
-    return pairs, overflow
+    ii = torch.where(valid, torch.minimum(i_raw, jj_raw), fill)
+    jj = torch.where(valid, torch.maximum(i_raw, jj_raw), fill)
+    overflow = (n_found > capacity) | torch.any(rowcnt > k_row)
+    return torch.stack([ii, jj], dim=-1), overflow
 
 
 def _host_pair_count(positions, box, cutoff, n_cells) -> int:
@@ -317,3 +336,55 @@ def neighbor_list_cell(positions, box, cutoff, capacity=None,
     return NeighborList(pairs, overflow, capacity, float(cutoff),
                         i_sorted=bool(sort_i), n_cells=n_cells,
                         cell_capacity=cell_capacity)
+
+
+# ---------------------------------------------------------------------------
+# sharded (slab-decomposed) pair search
+# ---------------------------------------------------------------------------
+
+
+def sharded_cell_pairs(positions, box, cutoff, n_cells, cell_capacity,
+                       capacity_per_device, group=None):
+    """Cell-list pair search decomposed over the ranks of ``group``
+    (admp_tpu/ops/neighborlist.py:529-643), run on every rank.
+
+    Rank r owns a contiguous slab of cells along the leading cell axis and
+    emits the pairs whose i-atom lies in it: a (capacity_per_device, 2)
+    block, pairs (min, max) padded with (n, n), which concatenated over the
+    ranks is the padded pair list the sharded energies take
+    (parallel/sharded.py). Positions are replicated; the candidates are
+    taken only for the slab's atoms, contiguous in cell-sorted order (cell
+    ids sort by the leading axis first), so a rank's work scales as N/P.
+
+    ``n_cells[0]`` must be divisible by the group's size. Returns
+    (pairs_local, overflow), the flag summed over the ranks: a cell, the
+    slab's atom capacity (2x the mean + 64), a row's partners or the block
+    overflowed."""
+    n = positions.shape[0]
+    ncx, ncy, ncz = n_cells
+    n_dev, rank = dist.get_world_size(group), dist.get_rank(group)
+    if ncx % n_dev:
+        raise ValueError(f"{ncx} cells along x do not divide over {n_dev} "
+                         "ranks")
+    slab_cx = ncx // n_dev
+    slab_cap = -(-2 * n // n_dev // 8) * 8 + 64
+    dev = positions.device
+    with torch.no_grad():
+        cell_id = _cell_ids(positions, box, n_cells)
+        slab_of = torch.div(cell_id, ncy * ncz * slab_cx,
+                            rounding_mode="floor")
+        order = torch.argsort(cell_id, stable=True)
+        start = torch.searchsorted(
+            cell_id[order].contiguous(),
+            torch.tensor([rank * slab_cx * ncy * ncz], device=dev))
+        padded = torch.cat([order, torch.full((slab_cap,), n, device=dev)])
+        ids = padded[start + torch.arange(slab_cap, device=dev)]
+        in_slab = slab_of[torch.clamp(ids, max=n - 1)] == rank
+        rows = torch.where((ids < n) & in_slab, ids, torch.full_like(ids, n))
+        slab_overflow = torch.sum(slab_of == rank) > slab_cap
+        good, cand, bucket_overflow = _cell_candidates(
+            positions, box, cutoff, n_cells, cell_capacity, rows)
+        pairs, overflow = _compact_rows(good, cand, n, capacity_per_device,
+                                        rows)
+        overflow = overflow | bucket_overflow | slab_overflow
+    return pairs, comm.psum(overflow.to(torch.int32), group) > 0

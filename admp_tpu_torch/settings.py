@@ -128,6 +128,15 @@ class EngineConfig:
         4). Under ``spread_method='auto'`` the three-channel dispersion mesh
         takes the kernel at both orders, as admp_tpu's multi-channel 'auto'
         takes its Pallas slab kernel (reciprocal.py:552-557).
+
+    halo_cap_factor: the per-(source, target) bin capacity of the sharded
+      halo spread's fixed-capacity all_to_all (parallel/spread.py), as a
+      multiple of the uniform share n_loc/P. The 3x default assumes each
+      rank's atom block is spread out in x; atoms in lattice or trajectory
+      order, cut into index blocks, crowd whole blocks into few slabs and
+      overflow it (the slab goes NaN, loudly). Shuffle or spatially sort the
+      atoms, or raise it toward P, where the bin reaches n_loc (always
+      enough; the all_to_all grows with it).
     """
 
     fft_friendly_grid: bool | str = "auto"
@@ -146,6 +155,7 @@ class EngineConfig:
     disp_ethresh: float | None = None
     disp_spread_order: int = 6
     cache_influence: bool = False
+    halo_cap_factor: float = 3.0
     scf: SCFConfig = dataclasses.field(default_factory=SCFConfig)
 
     def __post_init__(self):

@@ -77,6 +77,28 @@ Phases (any failure exits nonzero; no phase failure is caught):
      against the plain f64 reciprocal engine (energy 1e-10, gradients 5e-7);
      the polarizable exact-adjoint step under ds_accuracy() on the kernels
      against plain f32 (2e-4), K3 launched;
+  3j. the sharded layer (admp_tpu_torch/parallel) over NCCL at world size
+     1, in this process: examples/fluctuating_multipoles.py --n-side 32
+     --sharded (98,304 atoms, sparse exclusions, cell-list pairs, the
+     example's grid setup_ewald_parameters(4.0, 1e-4) -> 305^3, multipoles
+     that follow the O-H stretches) through make_sharded_pme_energy, and on
+     the 3000-atom box make_sharded_pol_energy (SCFConfig(), 96 x 96 x 128)
+     and make_sharded_ff_energy (128^3, order-4 dispersion), each against
+     the single-device force objects on the kernels (energy 1e-5, 98k 1e-6
+     of the largest term; forces 1e-4, 2e-4 for the exact adjoint and 98k)
+     and on plain f64 (forces 1e-3; 98k energy within 2x the plain f32
+     path's); K1, K2, K4 and K6 launched in every sharded energy+force, K3
+     ('pol', 'uu') in the exact adjoint; K4 and K6 on the 98k halo slabs
+     of P = 1 and P = 4 against their plain versions; the comm tally per
+     step; ms/step sharded and single-device (drift, forces consumed) and
+     one profiler window of each sharded step;
+  3k. the same two 3000-atom calls on 2 and then 4 gloo ranks sharing the
+     card (one start-up; admp_tpu_torch/parallel/launch.py), with the bins
+     sized for the lattice atom order (halo_cap_factor = P), against 3j's
+     P = 1 results, every rank the same iterations; the batch energy on a
+     2 x 2 data x model split against P = 1; dryrun_multichip(4,
+     device='cuda'); ms/step per rank (the overhead of P ranks on one card,
+     not scaling) and the bytes per rank per step;
   4. timing: ms/step of the MD step (median of 3 x 10 steps, CUDA events), of
      the exact-adjoint step (also with adjoint_warmstart) and of the
      full-force-field step, ms per fitting step, ms/step of the 98k step on
@@ -98,10 +120,12 @@ Phases (any failure exits nonzero; no phase failure is caught):
 
     python3 chip_smoke.py --launchers DIR
     python3 chip_smoke.py --adjoint DIR
+    python3 chip_smoke.py --sharded
 
 print only that last line, or only the exact-adjoint step's ms/step and
 profile, for the admp_tpu_torch in DIR (another commit's checkout, or .),
-so that two trees compare in one run on the card, and
+so that two trees compare in one run on the card, or run only phases 1,
+3j and 3k, and
 
     python3 chip_smoke.py --kernels DIR [DIR ...]
 
@@ -117,7 +141,10 @@ the MD (6, 1), full FF (4, 3) and 98k 320^3 shapes, K5 and K7 at 98k on
 Phase 2 also holds the three-channel spread and gather (K4, K6 at C=3) on the
 dispersion stencil at orders 4 and 6.
 Each path's launch counts are set to 0 just before it runs and read just
-after. The line before the last is the kernels' JSON record; the last line is
+after; each kernel's record also holds its launches in the sharded calls
+(``sharded_launches``: the 98k and 3000-atom calls at P = 1, and rank 0's
+at P = 2 and 4). The line before the last is the kernels' JSON record; the
+last line is
 {"ok": true, "device": {...}}. Long logs go to chiprun_out/chip_smoke/.
 """
 
@@ -2244,6 +2271,540 @@ def time_precision(forces, pol, w, card, out):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 3j, 3k: the sharded layer (admp_tpu_torch/parallel) on the card
+# ---------------------------------------------------------------------------
+
+# 3k: P gloo ranks share the one card (NCCL refuses two ranks on one GPU);
+# their times are the overhead of P ranks on one card, not scaling
+SHARD_PS = (2, 4)
+N_SHARD_STEPS = 2
+SHARD_DATA_MODEL = (2, 2)  # the batch energy's data x model split at P = 4
+
+
+def pad_pairs(pairs, n, multiple):
+    """pairs padded with (n, n) rows to a multiple of ``multiple``."""
+    extra = -pairs.shape[0] % multiple
+    pad = torch.full((extra, 2), n, device=pairs.device, dtype=pairs.dtype)
+    return torch.cat([pairs, pad])
+
+
+def slab_stencil(m_u0, q, grid, n_dev, slab, order=6):
+    """The halo slab spread's K4 inputs for slab ``slab`` of ``n_dev``: the
+    atoms whose base x-row it owns, at the synthetic m_u0' = base - slab x
+    width + order/2 on the (K1/P + order - 1, K2, K3) slab grid (the same
+    inputs parallel/spread._local_slab_spread gives K4), and that grid."""
+    half = order // 2
+    k = torch.tensor(grid, device=m_u0.device)
+    base = torch.remainder(m_u0.long() - half, k)
+    width = grid[0] // n_dev
+    keep = torch.div(base[:, 0], width, rounding_mode="floor") == slab
+    m_slab = base[keep] + half
+    m_slab[:, 0] -= slab * width
+    slab_grid = (width + order - 1, grid[1], grid[2])
+    return m_slab.to(torch.int32).contiguous(), q[keep].contiguous(), slab_grid
+
+
+def check_slab_kernels(m_u0, q, grid, n_dev, label):
+    """K4 and K6 on halo slab 0 of n_dev against spread_torch /
+    gather_torch: the spread within TOL_SPREAD of max|mesh|, the gather bit
+    for bit."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    m_s, q_s, sgrid = slab_stencil(m_u0, q, grid, n_dev, 0)
+    mesh_k = S.launch_spread(m_s, q_s, sgrid, 6)
+    mesh_p = S.spread_torch(m_s, q_s, sgrid, 6)
+    g = torch.randn((1, *sgrid), device=q.device,
+                    generator=torch.Generator(q.device).manual_seed(5))
+    out_k = S.launch_gather(m_s, g, sgrid, 6)
+    out_p = S.gather_torch(m_s, g, sgrid, 6)
+    torch.cuda.synchronize()
+    err = float((mesh_k - mesh_p).abs().max())
+    scale = float(mesh_p.abs().max())
+    log(f"K4/K6 on the {label} halo slab {sgrid} ({m_s.shape[0]} atoms): "
+        f"spread max abs err {err / scale:.3e} x max|mesh|, gather equal "
+        f"{bool(torch.equal(out_k, out_p))}")
+    require(err <= TOL_SPREAD * scale, f"K4 on the {label} slab {err / scale}")
+    require(torch.equal(out_k, out_p), f"K6 on the {label} slab")
+
+
+def sharded_inputs(w, n_dev):
+    """The 3000-atom box's sharded calls: the MD box's polarizable model
+    (grid (96, 96, 128), exact adjoint) and the full force field's (128^3,
+    kappa pinned, order-4 dispersion), pairs padded to a multiple of
+    n_dev, the halo bins sized for the lattice atom order
+    (halo_cap_factor = n_dev)."""
+    from admp_tpu_torch.ops.ewald import setup_ewald_parameters
+
+    s = w["sys"]
+    n = w["positions"].shape[0]
+    kappa = setup_ewald_parameters(RC, ETHRESH, s["box"])[0]
+    topo = dict(axis_types=s["axis_types"], axis_indices=s["axis_indices"],
+                covalent_map=s["covalent_map"], device=w["positions"].device)
+    return dict(kappa=kappa, topo=topo,
+                pairs=pad_pairs(w["pairs"], n, n_dev),
+                ff_pairs=pad_pairs(w["ff_pairs"], n, n_dev))
+
+
+def sharded_fns(w, n_dev, group=None):
+    """(pol energy_and_aux, full force field) of the 3000-atom box on
+    ``group``."""
+    from admp_tpu_torch import EngineConfig, SCFConfig
+    from admp_tpu_torch.parallel import (
+        make_sharded_ff_energy,
+        make_sharded_pol_energy,
+    )
+
+    si = sharded_inputs(w, n_dev)
+    cfg = EngineConfig(halo_cap_factor=float(n_dev))
+    pol = make_sharded_pol_energy(group, grid_shape=w["grid"],
+                                  kappa=si["kappa"], lmax=LMAX,
+                                  scf_config=SCFConfig(), config=cfg,
+                                  **si["topo"])
+    ff = make_sharded_ff_energy(group, grid_shape=(K_FF,) * 3,
+                                kappa=KAPPA_FF, lmax=LMAX,
+                                disp_grid_shape=(K_FF,) * 3,
+                                disp_kappa=KAPPA_FF, pmax=PMAX,
+                                disp_spread_order=DISP_ORDER, config=cfg,
+                                **si["topo"])
+    return pol, ff, si
+
+
+def sharded_pol_step(pol, w, si, positions, u_init):
+    """(energy, forces, u*, converged, n_iter) of one sharded polarizable
+    energy+force (exact adjoint)."""
+    pos = positions.detach().requires_grad_(True)
+    e, (u, conv, n_iter) = pol(pos, w["box"], si["pairs"], w["q_local"],
+                               w["pol"], w["tholes"], w["scales"],
+                               w["scales"], u_init)
+    (g,) = torch.autograd.grad(e, pos)
+    return e.detach(), g, u, conv, n_iter
+
+
+def sharded_ff_step(ff, w, si, positions):
+    s = w["sys"]
+    c = lambda x: torch.as_tensor(x, device=positions.device,  # noqa: E731
+                                  dtype=torch.float32)
+    pos = positions.detach().requires_grad_(True)
+    e = ff(pos, w["box"], si["ff_pairs"], w["q_local"], w["scales"],
+           w["c_list"], c(s["tt_a"]), c(s["tt_b"]), c(s["tt_q"]))
+    (g,) = torch.autograd.grad(e, pos)
+    return e.detach(), g
+
+
+def sharded_box_runs(w, n_dev, group=None):
+    """Phase 3j (n_dev = 1, NCCL) and each rank of 3k: the sharded
+    polarizable step and full force field on the 3000-atom box, the first
+    step's results with its launch counts and comm tally, one warm step's
+    tally, and ms/step over drift steps (forces consumed, warm-started
+    dipoles). Returns numpy results."""
+    from admp_tpu_torch.utils.comm import CommTally
+
+    pol, ff, si = sharded_fns(w, n_dev, group)
+    out = {}
+    u0 = torch.zeros_like(w["positions"])
+    reset_counts()
+    with CommTally().recording() as tally:
+        e, g, u, conv, n_iter = sharded_pol_step(pol, w, si, w["positions"],
+                                                 u0)
+    out["pol"] = dict(energy=float(e), forces=g.cpu().numpy(),
+                      u=u.cpu().numpy(), converged=bool(conv),
+                      n_iter=int(n_iter), launches=read_counts(),
+                      tally=tally.report())
+    reset_counts()
+    with CommTally().recording() as tally:
+        e_ff, g_ff = sharded_ff_step(ff, w, si, w["positions"])
+    out["ff"] = dict(energy=float(e_ff), forces=g_ff.cpu().numpy(),
+                     launches=read_counts(), tally=tally.report())
+
+    state = {"u": u}
+
+    def run_pol(n):
+        p, iters = w["positions"], []
+        for _ in range(n):
+            _, gp, state["u"], _, it = sharded_pol_step(pol, w, si, p,
+                                                        state["u"])
+            p = p + w["drift"] + 0.0 * gp
+            iters.append(it)
+        return iters
+
+    def run_ff(n):
+        p = w["positions"]
+        for _ in range(n):
+            _, gf = sharded_ff_step(ff, w, si, p)
+            p = p + w["drift"] + 0.0 * gf
+        return [0]
+
+    with CommTally().recording() as tally:
+        run_pol(1)
+    out["pol"]["tally_warm"] = tally.report()
+    for name, run in (("pol", run_pol), ("ff", run_ff)):
+        ms, times, iters = time_runs(run, N_SHARD_STEPS)
+        out[name].update(ms=ms, times=times, warm_iters=sorted(set(iters)))
+    return out, (run_pol, run_ff)
+
+
+def sharded_batch(w, data_group, model_group, n_dev):
+    """make_sharded_batch_energy on the 3000-atom box: two configurations
+    (the start and one drift step), fixed multipoles at the MD grid; the
+    (2,) energies and dE/dQ_local, numpy."""
+    from admp_tpu_torch import EngineConfig
+    from admp_tpu_torch.parallel import make_sharded_batch_energy
+
+    si = sharded_inputs(w, n_dev)
+    energy_b = make_sharded_batch_energy(
+        data_group, model_group, grid_shape=w["grid"], kappa=si["kappa"],
+        lmax=LMAX, config=EngineConfig(halo_cap_factor=float(n_dev)),
+        **si["topo"])
+    batch = torch.stack([w["positions"], w["positions"] + w["drift"]])
+    pairs_b = si["pairs"].expand(2, *si["pairs"].shape)
+    q = w["q_local"].clone().requires_grad_(True)
+    e = energy_b(batch, w["box"], pairs_b, q, w["scales"])
+    (g,) = torch.autograd.grad(e.sum(), q)
+    return e.detach().cpu().numpy(), g.cpu().numpy()
+
+
+def sharded_rank(rank, world_size):
+    """The gloo ranks of phase 3k on the card they share: P = 2 on ranks 0
+    and 1 (the others wait), then P = 4 with the 2 x 2 batch energy and
+    the dry run. One start-up serves both."""
+    import torch.distributed as dist
+
+    from admp_tpu_torch.entry import dryrun_multichip
+    from admp_tpu_torch.parallel.launch import mesh_groups
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    w = build_workload(dev)
+    out = {}
+    pair = dist.new_group([0, 1])
+    if rank < 2:
+        out[2], _ = sharded_box_runs(w, 2, pair)
+    dist.barrier()
+    out[world_size], _ = sharded_box_runs(w, world_size)
+    out["batch"] = sharded_batch(w, *mesh_groups(*SHARD_DATA_MODEL),
+                                 world_size)
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(world_size, device="cuda")
+    out["dryrun"]["s"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_large(w98):
+    """Phase 3j (a): examples/fluctuating_multipoles.py --n-side 32 --sharded
+    at world size 1: the example's grid (setup_ewald_parameters(4.0, 1e-4),
+    K1 and K2 rounded up to P), cell-list pairs padded to P, sparse
+    exclusions, multipoles that follow the O-H stretches; energy+force
+    through make_sharded_pme_energy against the single-device force on the
+    kernels ('auto') and on plain f32 and f64 at the same grid."""
+    from admp_tpu_torch.ops.ewald import setup_ewald_parameters
+    from admp_tpu_torch.ops.reciprocal import (
+        atom_spread_alpha,
+        spread_points_separable,
+    )
+    from admp_tpu_torch.parallel import make_sharded_pme_energy
+    from admp_tpu_torch.utils.comm import CommTally
+
+    s = w98["sys"]
+    n = w98["positions"].shape[0]
+    n_dev = 1
+    kappa, k1, k2, k3 = setup_ewald_parameters(RC, ETHRESH, s["box"])
+    k1, k2 = -(-k1 // n_dev) * n_dev, -(-k2 // n_dev) * n_dev
+    grid = (k1, k2, k3)
+    pairs = pad_pairs(w98["pairs"], n, n_dev)
+    sharded = make_sharded_pme_energy(
+        None, grid_shape=grid, kappa=kappa, lmax=LMAX,
+        axis_types=s["axis_types"], axis_indices=s["axis_indices"],
+        covalent_map=w98["sparse"], device=w98["positions"].device)
+
+    def sharded_step(positions):
+        pos = positions.detach().requires_grad_(True)
+        e = sharded(pos, w98["box"], pairs,
+                    fluctuating_q_local(pos, w98["q_cart"]), w98["scales"])
+        (g,) = torch.autograd.grad(e, pos)
+        return e.detach(), g
+
+    forces = {}
+    for name, pk, sm, dtype in (("kernel", "auto", "auto", torch.float32),
+                                ("plain32", "torch", "torch", torch.float32),
+                                ("plain64", "torch", "torch", torch.float64)):
+        f = make_large_force(w98, dtype, pk, sm)
+        f.kappa, (f.K1, f.K2, f.K3) = kappa, grid
+        f.refresh_calculators()
+        forces[name] = f
+    p0 = w98["positions"]
+    reset_counts()
+    with CommTally().recording() as tally:
+        e_s, g_s = sharded_step(p0)
+    counts = read_counts()
+    report = tally.report()
+    e_k, g_k = large_step(forces["kernel"], w98, p0)
+    e_p, g_p = large_step(forces["plain32"], w98, p0)
+    e_64, g_64 = large_step(forces["plain64"], w98, p0, torch.float64)
+    with torch.no_grad():
+        terms = forces["plain64"].get_metrics(*large_args(w98, p0.double(),
+                                                          torch.float64))
+    scale = max(abs(float(terms[t])) for t in ("e_real", "e_recip",
+                                               "e_self"))
+    de_k, de_64, de_p64 = (abs(float(a) - float(b)) / scale for a, b in (
+        (e_s, e_k), (e_s, e_64), (e_p, e_64)))
+    df_k, df_64 = rel_rmse(g_s, g_k), rel_rmse(g_s, g_64)
+    df_p, df_kp = rel_rmse(g_s, g_p), rel_rmse(g_k, g_p)
+    log(f"phase 3j 98k sharded (world size 1, NCCL): grid {grid}, kappa "
+        f"{kappa:.6f}, {pairs.shape[0]} pair slots; launches {counts}; "
+        f"E {float(e_s):.4f} (sharded kernels), {float(e_k):.4f} (single "
+        f"device, kernels), {float(e_64):.4f} (plain f64) kJ/mol; |dE| / "
+        f"max|term| vs single-device kernels {de_k:.3e}, vs plain f64 "
+        f"{de_64:.3e} (plain f32 vs f64 {de_p64:.3e}); force rel RMSE vs "
+        f"single-device kernels {df_k:.3e}, vs plain f64 {df_64:.3e} "
+        f"(single-device kernels vs f64 {rel_rmse(g_k, g_64):.3e}); vs plain "
+        f"f32 {df_p:.3e} (single-device kernels vs plain f32 {df_kp:.3e})")
+    log(format_tally("phase 3j 98k sharded energy+force", report))
+    require(all(counts[k] == 1 for k in ("pair_fwd", "pair_bwd", "spread",
+                                          "gather")),
+            f"98k sharded: K1/K2/K4/K6 did not launch once: {counts}")
+    require(bool(torch.isfinite(g_s).all())
+            and tuple(g_s.shape) == tuple(p0.shape),
+            "98k sharded: forces not finite or of the wrong shape")
+    require(de_k < TOL_E98, f"98k sharded vs single-device energy {de_k}")
+    require(de_64 < max(TOL_E98, 2 * de_p64),
+            f"98k sharded vs f64 energy {de_64} (plain f32 {de_p64})")
+    # two f32 summation orders differ by ~1.1e-4 at this size (TOL_STEP_F98)
+    require(df_k < TOL_STEP_F98,
+            f"98k sharded vs single-device forces {df_k}")
+    require(df_64 < TOL_F64, f"98k sharded vs f64 forces {df_64}")
+    q_local = fluctuating_q_local(p0, w98["q_cart"])
+    m_u0, u0, alpha = atom_spread_alpha(p0, w98["box"], q_local, grid, LMAX)
+    q_pts = spread_points_separable(u0, alpha, LMAX).reshape(n, 1, 216)
+    check_slab_kernels(m_u0, q_pts, grid, 1, "98k P=1")
+    check_slab_kernels(m_u0, q_pts, grid, 4, "98k P=4")
+    del forces["plain64"], forces["plain32"]
+
+    def run_sharded(n_steps):
+        p = p0
+        for _ in range(n_steps):
+            _, g = sharded_step(p)
+            p = p + w98["drift"] + 0.0 * g
+        return [0]
+
+    return dict(launches=counts, tally=report, run=run_sharded,
+                single=forces["kernel"])
+
+
+def format_tally(title, report):
+    from admp_tpu_torch.utils.comm import format_report
+
+    return format_report(title, report,
+                         f"{report['while_iters']} solver iterations")
+
+
+def single_pol_force(w, dtype, method):
+    """The single-device counterpart of the sharded polarizable call: the
+    MD box's model with SCFConfig(), no cached influence, K3 = 128."""
+    from admp_tpu_torch import ADMPPmeForce, EngineConfig, SCFConfig
+
+    s = w["sys"]
+    force = ADMPPmeForce(
+        s["box"], s["axis_types"], s["axis_indices"], s["covalent_map"], RC,
+        ETHRESH, lmax=LMAX, lpol=True,
+        config=EngineConfig(scf=SCFConfig(), pair_kernel=method,
+                            spread_method=method),
+        device=w["positions"].device, dtype=dtype)
+    force.K3 = K3
+    force.refresh_calculators()
+    return force
+
+
+def log_profile(name, run, n_steps=1):
+    """One profiler window of n_steps warm steps (a window of the sharded
+    polarizable step holds ~30k device kernels per step, and the profiler
+    takes tens of seconds per step to sort them)."""
+    wall, device_ms, n_kernels, top = profile_steps(run, name, n_steps)
+    log(f"profile {name} ({n_steps} warm step(s), profiler on): "
+        f"{wall:.3f} ms/step wall, {device_ms:.3f} ms/step device busy "
+        f"({100 * device_ms / wall:.1f}%), {n_kernels:.0f} device "
+        "kernels/step; top by device time:")
+    for key, ms_k, count in top:
+        log(f"  {ms_k:8.4f} ms/step  x{count:<4d} {key}")
+
+
+def check_against(label, got, ref, tol_f, f64=None):
+    """Log and gate a sharded result against a reference (energy within
+    TOL_STEP_E, forces within tol_f relative RMSE) and, with ``f64``, its
+    forces against plain f64 within TOL_F64."""
+    dev = ref["g"].device
+    de = abs(got["energy"] - ref["e"]) / abs(ref["e"])
+    df = rel_rmse(torch.as_tensor(got["forces"], device=dev), ref["g"])
+    msg = (f"{label}: E {got['energy']:.6f} vs {ref['e']:.6f}, energy rel "
+           f"{de:.3e}, force rel RMSE {df:.3e}")
+    if f64 is not None:
+        df64 = rel_rmse(torch.as_tensor(got["forces"], device=dev), f64["g"])
+        msg += f"; vs plain f64 ({f64['e']:.6f}) force rel RMSE {df64:.3e}"
+    log(msg)
+    require(bool(np.isfinite(got["forces"]).all()),
+            f"{label}: forces not finite")
+    require(de < TOL_STEP_E, f"{label}: energy {de}")
+    require(df < tol_f, f"{label}: forces {df}")
+    if f64 is not None:
+        require(df64 < TOL_F64, f"{label}: forces vs f64 {df64}")
+
+
+def require_launched(label, launches, hvp=False):
+    names = ("pair_fwd", "pair_bwd", "spread", "gather")
+    ok = all(launches[k] > 0 for k in names)
+    if hvp:
+        kinds = launches["pair_hvp_by_kind"]
+        ok = ok and kinds["pol"] > 0 and kinds["uu"] > 0
+    require(ok, f"{label}: a kernel never launched: {launches}")
+
+
+def sharded_path(w, w98, record, card):
+    """Phases 3j and 3k, with their times and profiles (the NCCL group of
+    3j lives only here)."""
+    import torch.distributed as dist
+
+    from admp_tpu_torch.parallel.launch import launch, mesh_groups
+
+    dev = w["positions"].device
+    t0 = time.perf_counter()
+    # the single-device paths on the same inputs: kernels and plain f64
+    single = {}
+    for name, method, dtype in (("kernel", "auto", torch.float32),
+                                ("plain64", "torch", torch.float64)):
+        force = single_pol_force(w, dtype, method)
+        e, g = force.get_forces(*pol_args(w, w["positions"], dtype))
+        ff_total, disp = make_ff(w, dev, dtype, method)
+        box, sc = w["box"].to(dtype), w["scales"].to(dtype)
+
+        def ff_signed(positions, c_list, total=ff_total, disp=disp, box=box,
+                      sc=sc):
+            # the sharded factory's sign (the front end's e_sr - e_lr):
+            # PME + TT - dispersion PME, where make_ff adds the dispersion
+            return total(positions, c_list) - 2.0 * disp.get_energy(
+                positions, box, w["ff_pairs"], c_list, sc)
+
+        e_ff, g_ff = ff_step(ff_signed, w["positions"].to(dtype),
+                             w["c_list"].to(dtype))
+        single[name] = dict(
+            pol=dict(e=float(e), g=g, u=force.U_ind, n=force.n_cycle),
+            ff=dict(e=float(e_ff), g=g_ff), force=force, total=ff_total)
+    k, f64 = single["kernel"], single["plain64"]
+
+    log(f"phase 3j: single-device references, {time.perf_counter() - t0:.1f}"
+        " s")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        t0 = time.perf_counter()
+        large = sharded_large(w98)
+        log(f"phase 3j: 98k, {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        p1, (run_pol_s, run_ff_s) = sharded_box_runs(w, 1)
+        batch1 = sharded_batch(w, *mesh_groups(1, 1), 1)
+        pol1, ff1 = p1["pol"], p1["ff"]
+        log(f"phase 3j polarizable (SCFConfig(), grid {w['grid']}): launches "
+            f"{pol1['launches']}; iterations {pol1['n_iter']} vs "
+            f"{k['pol']['n']} single-device; U_ind rel RMSE "
+            f"{rel_rmse(torch.as_tensor(pol1['u'], device=dev), k['pol']['u']):.3e}")
+        check_against("phase 3j polarizable, sharded vs single-device "
+                      "kernels", pol1, k["pol"], TOL_ADJ_F, f64["pol"])
+        require_launched("phase 3j polarizable", pol1["launches"], hvp=True)
+        require(pol1["converged"], "phase 3j: SCF did not converge")
+        log(format_tally("phase 3j polarizable, cold step", pol1["tally"]))
+        log(format_tally("phase 3j polarizable, warm step",
+                         pol1["tally_warm"]))
+        log(f"phase 3j full force field (128^3): launches "
+            f"{ff1['launches']}")
+        check_against("phase 3j full force field, sharded vs single-device "
+                      "kernels", ff1, k["ff"], TOL_STEP_F, f64["ff"])
+        require_launched("phase 3j full force field", ff1["launches"])
+        log(format_tally("phase 3j full force field", ff1["tally"]))
+        log("phase 3j: sharded layer at world size 1 (NCCL) ok, "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+        # times: the sharded calls at world size 1 beside the single-device
+        # kernel path, forces consumed, positions drifting
+        ms98, t98, _ = time_runs(large["run"], N_SHARD_STEPS)
+        ms98_1, t98_1, _ = time_runs(
+            lambda n: run_large(large["single"], w98, n), N_SHARD_STEPS)
+        ms_pol1, t_pol1, _ = time_runs(lambda n: [s[1] for s in run_steps(
+            k["force"], w, w["positions"], n)[1]], N_SHARD_STEPS)
+        ms_ff1, t_ff1, _ = time_runs(lambda n: run_ff(k["total"], w, n),
+                                     N_SHARD_STEPS)
+        for label, (ms, t), (ms_s, t_s) in (
+                ("98k", (ms98, t98), (ms98_1, t98_1)),
+                ("polarizable", (pol1["ms"], pol1["times"]), (ms_pol1, t_pol1)),
+                ("full force field", (ff1["ms"], ff1["times"]),
+                 (ms_ff1, t_ff1))):
+            log(f"phase 3j [{card}]: {label} step, sharded at world size 1 "
+                f"(NCCL) {ms:.3f} ms/step ({[round(x, 3) for x in t]}), "
+                f"single device {ms_s:.3f} ms/step "
+                f"({[round(x, 3) for x in t_s]}); kernels both")
+        log_profile("sharded_98k", large["run"])
+        log_profile("sharded_pol", run_pol_s)
+        log_profile("sharded_ff", run_ff_s)
+        log(f"phase 3j: times and profiles, {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = launch(sharded_rank, max(SHARD_PS), backend="gloo")
+    log(f"phase 3k: {max(SHARD_PS)} gloo ranks sharing the card, "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    by_p = {n: [r[n] for r in ranks[:n]] for n in SHARD_PS}
+    for n_dev in SHARD_PS:
+        ranks_p = by_p[n_dev]
+        as_ref = lambda r: dict(e=r["energy"],  # noqa: E731
+                                g=torch.as_tensor(r["forces"], device=dev))
+        for name, tol in (("pol", TOL_ADJ_F), ("ff", TOL_STEP_F)):
+            r0 = ranks_p[0][name]
+            log(f"phase 3k P={n_dev} {name}: launches on rank 0 "
+                f"{r0['launches']}; ranks' energies "
+                f"{[r[name]['energy'] for r in ranks_p]}")
+            for rank, r in enumerate(ranks_p):
+                check_against(f"phase 3k P={n_dev} {name} rank {rank} vs P=1",
+                              r[name], as_ref(p1[name]), tol)
+                require_launched(f"phase 3k P={n_dev} {name} rank {rank}",
+                                 r[name]["launches"], hvp=name == "pol")
+            if name == "pol":
+                iters = [r[name]["n_iter"] for r in ranks_p]
+                du = rel_rmse(torch.as_tensor(r0["u"], device=dev),
+                              torch.as_tensor(pol1["u"], device=dev))
+                log(f"phase 3k P={n_dev} pol: iterations per rank {iters} "
+                    f"(P=1: {pol1['n_iter']}), U_ind rel RMSE vs P=1 "
+                    f"{du:.3e}")
+                require(len(set(iters)) == 1, f"ranks' iterations {iters}")
+                require(all(r[name]["converged"] for r in ranks_p),
+                        f"P={n_dev}: SCF did not converge")
+            log(format_tally(f"phase 3k P={n_dev} {name}, rank 0, first step",
+                             r0["tally"]))
+            log(f"phase 3k [{card}] P={n_dev} {name}: ms/step per rank "
+                f"{[round(r[name]['ms'], 3) for r in ranks_p]} (the overhead "
+                f"of {n_dev} ranks sharing one card over gloo, not scaling;"
+                f" P=1 NCCL {p1[name]['ms']:.3f})")
+    e_b, g_b = ranks[0]["batch"]
+    de = float(np.max(np.abs(e_b - batch1[0]) / np.abs(batch1[0])))
+    dg = rel_rmse(torch.as_tensor(g_b), torch.as_tensor(batch1[1]))
+    log(f"phase 3k batch energy, data x model {SHARD_DATA_MODEL}: "
+        f"energies {e_b.tolist()} vs P=1 {batch1[0].tolist()} (rel "
+        f"{de:.3e}), dE/dQ_local rel RMSE {dg:.3e}")
+    require(de < TOL_STEP_E and dg < TOL_STEP_F,
+            f"batch energy vs P=1: {de}, {dg}")
+    log(f"phase 3k dryrun_multichip(4, device='cuda') on rank 0: "
+        f"{ranks[0]['dryrun']}")
+    log("phase 3k: sharded layer on 2 and 4 gloo ranks ok")
+    for name in ("pair_fwd", "pair_bwd", "pair_hvp", "spread", "gather"):
+        record[name]["sharded_launches"] = {
+            "98k_P1": large["launches"][name],
+            "pol_P1": pol1["launches"][name],
+            "fullff_P1": ff1["launches"][name],
+            **{f"{kind}_P{n}_rank0": by_p[n][0][kind]["launches"][name]
+               for n in SHARD_PS for kind in ("pol", "ff")}}
+    for name in ("spread_c3", "gather_c3", "spread_tiled", "gather_tiled"):
+        record[name]["sharded_launches"] = {}
+
+
 def time_runs(run, n_steps=N_STEPS):
     """Median ms/step over N_REPEATS calls of run(n_steps), CUDA events
     around each call (each ends in a synchronize); run returns a list of the
@@ -2908,7 +3469,8 @@ def main():
     # (another commit's checkout, to compare in one run);
     # --kernels DIR [DIR ...]: only the device times of K2-K7,
     # this tree's beside each DIR's in one process
-    mode = sys.argv[1] if len(sys.argv) > 2 else None
+    # --sharded: only phases 1, 3j and 3k
+    mode = sys.argv[1] if len(sys.argv) > 1 else None
     other = sys.argv[2] if mode in ("--launchers", "--adjoint") else None
     sys.path.insert(0, other or str(ROOT))
     from admp_tpu_torch.ops.cuda import build
@@ -2968,6 +3530,9 @@ def main():
     }
     t0 = time.perf_counter()
     w = build_workload(dev)
+    if mode == "--sharded":
+        sharded_path(w, build_large(dev), record, card)
+        return 0
     log(f"workload: {w['positions'].shape[0]} atoms, "
         f"{w['pairs'].shape[0]} pair slots (dense), "
         f"{w['ff_pairs'].shape[0]} (cell list), built in "
@@ -2997,6 +3562,7 @@ def main():
     log("phase 3h: MD ok")
     prec_forces, prec_pol, prec = precision_path(w)
     log("phase 3i: precision modes ok")
+    sharded_path(w, w98, record, card)
 
     ms, times, iters = time_steps(force, w)
     ms_plain, times_plain, _ = time_steps(plain32, w)
@@ -3085,7 +3651,8 @@ def main():
                     replaces=r["replaces"], launches=r["launches"],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    sharded_launches=r["sharded_launches"])
                for name, r in record.items()]
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """admp_tpu_torch imports without JAX, Triton, nvcc or a GPU, and builds
-nothing when it is imported."""
+nothing when it is imported: the sharded layer (parallel/, utils/comm.py)
+and the entry points (entry.py) too."""
 
 import pathlib
 import subprocess
@@ -21,6 +22,10 @@ import admp_tpu_torch.md, admp_tpu_torch.api, admp_tpu_torch.ops.bonded
 import admp_tpu_torch.io, admp_tpu_torch.io.pdb, admp_tpu_torch.io.ffxml
 import admp_tpu_torch.io.topology, admp_tpu_torch.utils.safety
 import admp_tpu_torch.utils.profiling, admp_tpu_torch.contrib
+import admp_tpu_torch.parallel, admp_tpu_torch.parallel.launch
+import admp_tpu_torch.parallel.spread, admp_tpu_torch.utils.comm
+import admp_tpu_torch.entry
+from admp_tpu_torch import make_sharded_pol_energy, sharded_cell_pairs
 from admp_tpu_torch.ops.cuda import build
 try:
     import admp_tpu_torch.contrib.openmm

@@ -36,7 +36,9 @@ zero would break the error-free transforms) against float64 with admp_tpu's
 bounds (tests/test_ds.py), the DS mesh's quantized pass the same bits in any
 atom order under the card's atomics, and the kernel route of each
 real-space and spread mode against its plain f32 route (forces 1e-4), K1
-launched twice per step under 'f64-near'.
+launched twice per step under 'f64-near'. K4 and K6 on the sharded spread's
+halo slabs (1e-5 max|mesh|, bit for bit) at the 98k box's P = 1 and P = 4
+slab shapes.
 """
 
 import numpy as np
@@ -323,6 +325,45 @@ def test_spread_functions_are_mutual_adjoints(dev):
                                 create_graph=True)
     (h2,) = torch.autograd.grad(h1.sum(), pts)
     assert _rel(g1, h1) < 1e-5 and _rel(g2, h2) < 1e-5
+
+
+@pytest.mark.parametrize("n_dev", [1, 4])
+def test_halo_slab_spread_and_gather_match_plain(dev, n_dev):
+    """K4 and K6 on halo slab 0 of the sharded spread (parallel/spread.py):
+    the (K1/P + 5, K2, K3) slab of the 98k box's 305^3 grid (98,304 atoms
+    at P = 1, the 310 x 305 x 305 slab; a quarter of them at P = 4, 81 x
+    305 x 305), fed the synthetic m_u0' = base - slab x width + 3 that
+    _local_slab_spread gives them, against spread_torch / gather_torch;
+    and _local_slab_spread itself launching K4 under 'auto'."""
+    from admp_tpu_torch.parallel.spread import _local_slab_spread
+
+    n, grid, box = 98304, (305, 305, 305), 99.328
+    gen = torch.Generator(dev).manual_seed(3)
+    pos = torch.rand(n, 3, device=dev, generator=gen) * box
+    q = torch.randn(n, 9, device=dev, generator=gen)
+    m_u0, u0, alpha = atom_spread_alpha(pos, torch.eye(3, device=dev) * box,
+                                        q, grid, 2)
+    k = torch.tensor(grid, device=dev)
+    base = torch.remainder(m_u0.long() - 3, k)
+    width = grid[0] // n_dev
+    keep = torch.div(base[:, 0], width, rounding_mode="floor") == 0
+    m_slab = (base[keep] + 3).to(torch.int32).contiguous()
+    q_pts = spread_points_separable(u0[keep], alpha[keep], 2).reshape(
+        -1, 1, 216).contiguous()
+    sgrid = (width + 5, grid[1], grid[2])
+    mesh_k = S.launch_spread(m_slab, q_pts, sgrid, 6)
+    mesh_p = S.spread_torch(m_slab, q_pts, sgrid, 6)
+    assert float((mesh_k - mesh_p).abs().max()) <= 1e-5 * float(
+        mesh_p.abs().max())
+    g = torch.randn((1, *sgrid), device=dev, generator=gen)
+    assert torch.equal(S.launch_gather(m_slab, g, sgrid, 6),
+                       S.gather_torch(m_slab, g, sgrid, 6))
+    before = S.launch_spread.launches
+    slab = _local_slab_spread(base[keep].to(torch.int32), q_pts[:, 0], 0,
+                              width, 5, grid[1], grid[2], 6, "auto")
+    assert S.launch_spread.launches == before + 1
+    assert float((slab - mesh_p[0]).abs().max()) <= 1e-5 * float(
+        mesh_p.abs().max())
 
 
 @pytest.mark.parametrize("order", [4, 6])

@@ -34,9 +34,15 @@ energy+force call the cotangent of u* is the field at u*, which is the
 forward solve's final residual negated), and the backward refines from that
 w against the true cotangent to the cold solve's tolerance
 (admp_tpu/scf/solver.py:191-245).
+
+``make_induced_dipole_solver`` is admp_tpu's exported factory over these:
+a solver of (field_fn, inputs), its inputs a tensor or a tuple, list or
+dict of them, flattened into ``ImplicitSolve``'s theta.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -234,3 +240,130 @@ def solve_implicit(r0, u0, pol, matvec_fn, config: SCFConfig, theta,
     u, w = ImplicitSolve.apply(r0, u0, pol, matvec_fn, config, info, rhs,
                                w_init.detach(), *theta)
     return u, info["converged"], info["n_iter"], w
+
+
+def _tree_flatten(tree):
+    """(tensors, rebuild): the tensors of ``tree`` (a tensor, or a tuple,
+    list or dict of them, nested), in order, and ``rebuild(tensors)``, which
+    puts a list of that length back into the same structure. Other leaves
+    stay as they are. The port's counterpart of a JAX pytree, flattened for
+    an autograd Function, which takes flat tensors."""
+    if torch.is_tensor(tree):
+        return [tree], lambda ts: ts[0]
+    if isinstance(tree, dict):
+        keys = list(tree)
+        parts = [_tree_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (tuple, list)):
+        keys = None
+        parts = [_tree_flatten(v) for v in tree]
+    else:
+        return [], lambda ts: tree
+    sizes = [len(leaves) for leaves, _ in parts]
+
+    def rebuild(ts):
+        out, at = [], 0
+        for (_, part), n in zip(parts, sizes):
+            out.append(part(ts[at:at + n]))
+            at += n
+        if keys is not None:
+            return dict(zip(keys, out))
+        if hasattr(tree, "_fields"):  # a namedtuple
+            return type(tree)(*out)
+        return type(tree)(out)
+
+    return [t for leaves, _ in parts for t in leaves], rebuild
+
+
+def make_induced_dipole_solver(field_fn, config: SCFConfig = SCFConfig(),
+                               matvec_fn=None, external_r0=False):
+    """Build a differentiable SCF solver (admp_tpu/scf/solver.py:251).
+
+    Args:
+      field_fn: (u, inputs) -> field, the gradient of the total energy with
+        respect to the induced dipoles u (N, 3); linear in u. With grad mode
+        on it must keep its graph to ``inputs`` (a field taken with
+        ``torch.autograd.grad`` passes ``create_graph=True``).
+      config: solver configuration.
+      matvec_fn: optional (v, inputs) -> A v, the u-Hessian applied to v;
+        by default ``field_fn(v) - field_fn(0)``, with ``field_fn(0)`` taken
+        once per solve. Every PCG iteration of the forward solve and of the
+        adjoint solve runs it.
+      external_r0: the caller supplies the starting residual
+        ``r0 = -field(u_init)``, with its graph, instead of the solver
+        building it; requires ``matvec_fn``.
+
+    Returns:
+      solve(inputs, u_init, pol) -> (u_star, (converged, n_iter)), or with
+      ``external_r0``: solve(inputs, u_init, pol, r0, w_init) ->
+      (u_star, (converged, n_iter, w)), ``w`` the next adjoint warm start
+      (zeros unless ``config.adjoint_warmstart`` with ``exact_adjoint``).
+      ``inputs`` is a tensor, or a tuple, list or dict of tensors (nested).
+
+    Gradients: with ``config.exact_adjoint`` u* carries the implicit adjoint
+    of ``ImplicitSolve``: theta_bar = -(d field/d theta)^T w, w = A^-1 g.
+    Without ``external_r0`` the solver builds r0 = -field(u0) with its graph
+    to ``inputs`` itself, so that r0's cotangent w and the matvec's theta
+    path together give admp_tpu's -vjp_theta[field(u*)](w) (field is affine
+    in u). Under Feynman-Hellmann (``exact_adjoint=False``) u* comes back
+    without a graph: the solve adds no gradient, where admp_tpu returns
+    zeros. ``u_init``, ``w_init`` and ``pol`` get no gradient from the
+    solve. A third derivative through it raises (``ImplicitSolve``).
+    """
+    if external_r0 and matvec_fn is None:
+        raise ValueError("external_r0 requires matvec_fn")
+
+    def operator(rebuild):
+        """matvec(v, theta, create_graph) over the caller's inputs rebuilt
+        from theta, as ``ImplicitSolve`` calls it."""
+        field_at_zero = []
+
+        def matvec(v, theta, create_graph):
+            inputs = rebuild(list(theta))
+            if matvec_fn is not None:
+                return matvec_fn(v, inputs)
+            if create_graph:  # the backward's theta path: no cached value
+                return field_fn(v, inputs) - field_fn(torch.zeros_like(v),
+                                                      inputs)
+            if not field_at_zero:
+                field_at_zero.append(field_fn(torch.zeros_like(v), inputs))
+            return field_fn(v, inputs) - field_at_zero[0]
+
+        return matvec
+
+    def run(inputs, u_init, pol, r0=None, w_init=None):
+        theta, rebuild = _tree_flatten(inputs)
+        theta_d = [t.detach() for t in theta]
+        matvec = operator(rebuild)
+        u0 = u_init.detach()
+        rhs = None
+        if config.method == "jacobi":
+            with torch.no_grad():
+                rhs = -field_fn(torch.zeros_like(u0), rebuild(theta_d))
+        if not config.exact_adjoint:
+            with torch.no_grad():
+                if r0 is None:
+                    r0 = -field_fn(u0, rebuild(theta_d))
+                u, conv, n_it, _ = solve(
+                    lambda v: matvec(v, theta_d, False), r0.detach(), u0,
+                    pol, config, rhs)
+            return u, conv, n_it, torch.zeros_like(u)
+        cfg = config
+        if r0 is None:
+            r0 = -field_fn(u0, inputs)
+            # admp_tpu's classic solve has no carried adjoint
+            cfg = dataclasses.replace(config, adjoint_warmstart=False)
+        return solve_implicit(r0, u0, pol, matvec, cfg, theta, rhs=rhs,
+                              w_init=w_init)
+
+    if external_r0:
+        def solve_external(inputs, u_init, pol, r0, w_init):
+            u, conv, n_it, w = run(inputs, u_init, pol, r0, w_init)
+            return u, (conv, n_it, w)
+
+        return solve_external
+
+    def solve_classic(inputs, u_init, pol):
+        u, conv, n_it, _ = run(inputs, u_init, pol)
+        return u, (conv, n_it)
+
+    return solve_classic

@@ -125,3 +125,27 @@ def water_system(n_side=2, spacing=3.1, jitter=0.1, seed=0,
         tt_b=np.tile([p["b_O"], p["b_H"], p["b_H"]], nmol),
         tt_q=np.tile([p["q_O"], p["q_H"], p["q_H"]], nmol),
     )
+
+
+def write_water_pdb(path, positions, box):
+    """Write a synthetic water box as a minimal PDB (O/H1/H2 per residue,
+    CRYST1 orthorhombic cell): the input format the front end reads, and
+    the bytes admp_tpu/systems.py:121 writes. ``positions`` (N, 3) and
+    ``box`` (3, 3) are numpy arrays or tensors, on any device."""
+    positions, box = (np.asarray(x.detach().cpu() if hasattr(x, "detach")
+                                 else x) for x in (positions, box))
+    names = ["O", "H1", "H2"]
+    with open(path, "w") as fh:
+        fh.write("REMARK  synthetic water box\n")
+        fh.write(
+            "CRYST1%9.3f%9.3f%9.3f%7.2f%7.2f%7.2f P 1           1\n"
+            % (box[0, 0], box[1, 1], box[2, 2], 90, 90, 90)
+        )
+        for i, p in enumerate(positions):
+            fh.write(
+                "HETATM%5d %-4s HOH A%4d    %8.3f%8.3f%8.3f  1.00  0.00"
+                "           %s\n"
+                % (i + 1, names[i % 3], i // 3 + 1, p[0], p[1], p[2],
+                   names[i % 3][0])
+            )
+        fh.write("END\n")

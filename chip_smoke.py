@@ -99,6 +99,19 @@ Phases (any failure exits nonzero; no phase failure is caught):
      2 x 2 data x model split against P = 1; dryrun_multichip(4,
      device='cuda'); ms/step per rank (the overhead of P ranks on one card,
      not scaling) and the bytes per rank per step;
+  3l. the user's scripts (admp_tpu_torch.examples), each through its own
+     run() at the size its users run it: run_water --nmol 1000 plain and
+     --polarizable, run_npt --nmol 1000 --steps 20 --segments 3, fit_params
+     main() and multi_config(n_side=10) in float32, fluctuating_multipoles
+     --n-side 32 and its sharded branch at world size 1 over NCCL; each on
+     the kernels with its launches (counts set to 0 just before each script
+     and read just after) and its wall time, and its deterministic energies
+     and forces against the same run() on the plain versions
+     (method='torch') within the tolerances of the phase of the same system
+     (3e, 3b, 3h, 3d, 3f/3j); the scripts' own asserts; one forced volume
+     move (ln V - 0.02) on the NPT script's end state, which must change the
+     pair count, its refreshed list against a fresh cell list (the same
+     pairs, the same energy within 1e-5);
   4. timing: ms/step of the MD step (median of 3 x 10 steps, CUDA events), of
      the exact-adjoint step (also with adjoint_warmstart) and of the
      full-force-field step, ms per fitting step, ms/step of the 98k step on
@@ -121,11 +134,12 @@ Phases (any failure exits nonzero; no phase failure is caught):
     python3 chip_smoke.py --launchers DIR
     python3 chip_smoke.py --adjoint DIR
     python3 chip_smoke.py --sharded
+    python3 chip_smoke.py --scripts
 
 print only that last line, or only the exact-adjoint step's ms/step and
 profile, for the admp_tpu_torch in DIR (another commit's checkout, or .),
 so that two trees compare in one run on the card, or run only phases 1,
-3j and 3k, and
+3j and 3k, or only phases 1 and 3l, and
 
     python3 chip_smoke.py --kernels DIR [DIR ...]
 
@@ -143,7 +157,7 @@ dispersion stencil at orders 4 and 6.
 Each path's launch counts are set to 0 just before it runs and read just
 after; each kernel's record also holds its launches in the sharded calls
 (``sharded_launches``: the 98k and 3000-atom calls at P = 1, and rank 0's
-at P = 2 and 4). The line before the last is the kernels' JSON record; the
+at P = 2 and 4) and in each script of phase 3l (``script_launches``). The line before the last is the kernels' JSON record; the
 last line is
 {"ok": true, "device": {...}}. Long logs go to chiprun_out/chip_smoke/.
 """
@@ -153,10 +167,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+import math
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -203,11 +219,10 @@ N_FF_FIT_STEPS = 2
 # the force-matching loss falls in f32
 FF_FIT_LR = 0.1
 
-# the large system of examples/fluctuating_multipoles.py --n-side 32: its
-# charge-transfer response (e / A) to O-H stretches about r0 (A), the
-# example's --k grid
+# the large system of examples/fluctuating_multipoles.py --n-side 32 (its
+# charges follow the O-H stretches: the port's script's
+# fluctuating_q_local), the example's --k grid
 N98_SIDE, N98_JITTER = 32, 0.1
-R0_OH, COUPLING = 0.9572, 0.4
 K98, K98_ALT = 320, 256
 # K5's crowded case: atoms in one tile, ~40 times what its stage holds
 N_CROWD = 2000
@@ -234,7 +249,6 @@ TOL_FE = 1e-6
 # TOL_NVE of the starting kinetic energy (admp_tpu's own gate,
 # tests/test_md_fitting.py:59-61); NPT: Langevin segments, a neighbor-list
 # refresh, one MC barostat move each
-MD_JITTER = 0.05
 NVE_STEPS, NVE_DT, TOL_NVE = 50, 5e-5, 0.02
 NPT_SEGMENTS, NPT_STEPS, NPT_DT = 3, 20, 2e-4
 TEMPERATURE, FRICTION, PRESSURE_BAR, MAX_DLNV = 300.0, 10.0, 1.0, 0.02
@@ -1404,70 +1418,16 @@ def front_end_path(w):
 
 
 def build_md(device, dtype, method):
-    """examples/run_npt.py's system at --nmol 1000 in the port: fixed
-    multipoles (lmax 2, the influence grid following the box), Tang-Toennies
-    and the water bonded terms, rc 4 A on a cell list with a 1 A skin;
-    returns a dict with the energy(positions, box, pairs) closure."""
-    from admp_tpu_torch import (
-        ADMPPmeForce,
-        EngineConfig,
-        convert_cart2harm,
-        generate_pairwise_interaction,
-        neighbor_list_cell,
-        tt_damping_qq_c6_kernel,
-        water_system,
-    )
-    from admp_tpu_torch.ops.bonded import (
-        harmonic_angle_energy,
-        harmonic_bond_energy,
-        water_bonded_terms,
-    )
+    """examples/run_npt.py's system at --nmol 1000, built by the port's
+    script (admp_tpu_torch.examples.run_npt.build): fixed multipoles (lmax
+    2, the influence grid following the box), Tang-Toennies and the water
+    bonded terms, rc 4 A on a cell list with a 1 A skin; a dict with the
+    energy(positions, box, pairs) closure."""
+    from admp_tpu_torch.examples.run_npt import build
 
-    s = water_system(n_side=N_SIDE, spacing=SPACING, jitter=MD_JITTER,
-                     seed=SEED)
-    n = s["positions"].shape[0]
-    c = lambda x: torch.as_tensor(np.asarray(x), device=device, dtype=dtype)  # noqa: E731
-    positions, box = c(s["positions"]), c(s["box"])
-    nl = neighbor_list_cell(positions, box, RC + 1.0)
-    require(not bool(nl.did_overflow), "MD cell list overflow")
-    q_local = convert_cart2harm(c(s["q_cart"]), LMAX)
-    sc = c([0.0, 0.0, 0.0, 1.0, 1.0])
-    tt_args = [c(s[k]) for k in ("tt_a", "tt_b", "tt_q")] + [
-        c(s["c_list"])[:, 0]]
-    b_idx, r0, kb, a_idx, th0, ka = water_bonded_terms(n // 3)
-    b_idx, a_idx = (torch.as_tensor(x, device=device) for x in (b_idx, a_idx))
-    r0, kb, th0, ka = (c(x) for x in (r0, kb, th0, ka))
-    pme = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
-                       s["covalent_map"], RC, ETHRESH, lmax=LMAX,
-                       config=EngineConfig(cache_influence=False,
-                                           pair_kernel=method,
-                                           spread_method=method),
-                       device=device, dtype=dtype)
-    tt = generate_pairwise_interaction(tt_damping_qq_c6_kernel,
-                                       s["covalent_map"], device=device)
-
-    def energy(pos, bx, prs):
-        e = pme.get_energy(pos, bx, prs, q_local, sc)
-        e = e + tt(pos, bx, prs, sc, *tt_args)
-        e = e + harmonic_bond_energy(pos, bx, b_idx, r0, kb)
-        return e + harmonic_angle_energy(pos, bx, a_idx, th0, ka)
-
-    return dict(positions=positions, box=box, nl=nl, energy=energy, pme=pme,
-                masses=c(np.tile([15.999, 1.008, 1.008], n // 3)),
-                molecules=np.repeat(np.arange(n // 3), 3))
-
-
-def md_force_fn(m, box, pairs):
-    """force_fn(positions, aux) -> (energy, forces, aux) at a fixed box and
-    pair list."""
-    def force_fn(p, aux):
-        x = p.detach().requires_grad_(True)
-        with torch.enable_grad():
-            e = m["energy"](x, box, pairs)
-            (g,) = torch.autograd.grad(e, x)
-        return e.detach(), -g, aux
-
-    return force_fn
+    m = build(N_SIDE ** 3, device, dtype, method)
+    require(not bool(m["nl"].did_overflow), "MD cell list overflow")
+    return m
 
 
 def maxwell_velocities(masses, temperature, seed):
@@ -1484,10 +1444,11 @@ def maxwell_velocities(masses, temperature, seed):
 def nve_drift(m):
     """NVE_STEPS velocity-Verlet steps from Maxwell velocities: (|dE_total|,
     the starting kinetic energy, E_total at start and end)."""
+    from admp_tpu_torch.examples import run_npt
     from admp_tpu_torch.md import MDState, _kinetic, run_nve
 
     box, pairs = m["box"], m["nl"].pairs
-    force_fn = md_force_fn(m, box, pairs)
+    force_fn = run_npt.force_fn(m["energy"], box, pairs)
     v0 = maxwell_velocities(m["masses"], TEMPERATURE, SEED)
     e0, f0, _ = force_fn(m["positions"], None)
     ke0 = float(_kinetic(m["masses"], v0))
@@ -1512,6 +1473,7 @@ def md_path(w):
         refresh_neighbor_list,
         run_langevin,
     )
+    from admp_tpu_torch.examples import run_npt
 
     dev = w["positions"].device
     kern = build_md(dev, torch.float32, "auto")
@@ -1544,10 +1506,10 @@ def md_path(w):
     box, nl = kern["box"], kern["nl"]
     p0 = kern["positions"]
     state = MDState(p0, torch.zeros_like(p0),
-                    md_force_fn(kern, box, nl.pairs)(p0, None)[1], None)
+                    run_npt.force_fn(kern["energy"], box, nl.pairs)(p0, None)[1], None)
     for seg in range(NPT_SEGMENTS):
         reset_counts()
-        state, kes = run_langevin(md_force_fn(kern, box, nl.pairs),
+        state, kes = run_langevin(run_npt.force_fn(kern["energy"], box, nl.pairs),
                                   kern["masses"], NPT_DT, TEMPERATURE,
                                   FRICTION, state, NPT_STEPS, gen)
         nl = refresh_neighbor_list(nl, state.positions, box)
@@ -1560,8 +1522,8 @@ def md_path(w):
         box = box_new
         if accepted:
             nl = refresh_neighbor_list(nl, pos, box)
-        state = state._replace(
-            positions=pos, forces=md_force_fn(kern, box, nl.pairs)(pos, None)[1])
+        forces = run_npt.force_fn(kern["energy"], box, nl.pairs)(pos, None)[1]
+        state = state._replace(positions=pos, forces=forces)
         counts = read_counts()
         t_inst = 2.0 * float(kes[-1]) / (3.0 * p0.shape[0] * 0.00831446261815324)
         log(f"NPT segment {seg}: E {float(e):.3f} kJ/mol, V "
@@ -1624,8 +1586,9 @@ def langevin_runner(m):
     """run(n): n Langevin steps of the 3h system from its start (the first
     forces taken once, here), for phase 4; returns [the last KE]."""
     from admp_tpu_torch import MDState, run_langevin
+    from admp_tpu_torch.examples import run_npt
 
-    force_fn = md_force_fn(m, m["box"], m["nl"].pairs)
+    force_fn = run_npt.force_fn(m["energy"], m["box"], m["nl"].pairs)
     p0 = m["positions"]
     state0 = MDState(p0, torch.zeros_like(p0), force_fn(p0, None)[1], None)
     gen = torch.Generator(device=p0.device).manual_seed(SEED)
@@ -1680,22 +1643,6 @@ def build_large(device):
                     s["positions"].shape), **f32))
 
 
-def fluctuating_q_local(positions, q_cart0):
-    """examples/fluctuating_multipoles.py:75-91: each water's O and H
-    charges shift by COUPLING x its O-H stretches about R0_OH, then
-    Cartesian -> harmonic (lmax 2); differentiable in the positions."""
-    from admp_tpu_torch import convert_cart2harm
-
-    n = positions.shape[0]
-    o, h1, h2 = positions[0::3], positions[1::3], positions[2::3]
-    dq1 = COUPLING * (torch.linalg.norm(h1 - o, dim=-1) - R0_OH)
-    dq2 = COUPLING * (torch.linalg.norm(h2 - o, dim=-1) - R0_OH)
-    q = q_cart0.reshape(n // 3, 3, -1)
-    dq = torch.stack([dq1 + dq2, -dq1, -dq2], dim=1)
-    q = torch.cat([q[..., :1] + dq[..., None], q[..., 1:]], dim=-1)
-    return convert_cart2harm(q.reshape(n, -1), 2)
-
-
 def make_large_force(w, dtype, pair_kernel, spread_method, k=None):
     """The example's force: fixed multipoles, lmax 2, the 5-smooth grid
     (320^3 here), i-sorted pairs; ``k`` sets K1..K3 as its --k does."""
@@ -1716,6 +1663,10 @@ def make_large_force(w, dtype, pair_kernel, spread_method, k=None):
 
 
 def large_args(w, positions, dtype):
+    from admp_tpu_torch.examples.fluctuating_multipoles import (
+        fluctuating_q_local,
+    )
+
     c = lambda t: t.to(dtype)  # noqa: E731
     return (positions, c(w["box"]), w["pairs"],
             fluctuating_q_local(positions, c(w["q_cart"])), c(w["scales"]))
@@ -1742,6 +1693,9 @@ def run_large(force, w, n_steps, dtype=torch.float32):
 
 def large_stencil(w, grid, order=6):
     """The 98k step's energy-mesh stencil values at its first step."""
+    from admp_tpu_torch.examples.fluctuating_multipoles import (
+        fluctuating_q_local,
+    )
     from admp_tpu_torch.ops.reciprocal import atom_spread_alpha, spread_points_separable
 
     q_local = fluctuating_q_local(w["positions"], w["q_cart"])
@@ -2497,6 +2451,9 @@ def sharded_large(w98):
     exclusions, multipoles that follow the O-H stretches; energy+force
     through make_sharded_pme_energy against the single-device force on the
     kernels ('auto') and on plain f32 and f64 at the same grid."""
+    from admp_tpu_torch.examples.fluctuating_multipoles import (
+        fluctuating_q_local,
+    )
     from admp_tpu_torch.ops.ewald import setup_ewald_parameters
     from admp_tpu_torch.ops.reciprocal import (
         atom_spread_alpha,
@@ -2805,6 +2762,285 @@ def sharded_path(w, w98, record, card):
         record[name]["sharded_launches"] = {}
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: the user's scripts (admp_tpu_torch.examples)
+# ---------------------------------------------------------------------------
+
+# each script at the size its users run: run_water --nmol 1000 (plain and
+# --polarizable), run_npt --nmol 1000 --steps 20 --segments 3, fit_params
+# main() and multi_config(n_side=10), fluctuating_multipoles --n-side 32
+# and its sharded branch at world size 1 over NCCL
+SCRIPT_NMOL, NPT_SCRIPT_STEPS, NPT_SCRIPT_SEGMENTS = 1000, 20, 3
+FIT_N_SIDE, FIT_PLAIN_EPOCHS, FIT_COMPARE_STEPS = 10, 2, 2
+# the barostat's largest compression, forced once on the NPT script's end
+# state: it must change the pair count
+FORCED_DLNV = -0.02
+FLUCT_TIMED_STEPS = 3  # fluctuating_multipoles.run's default time_steps
+
+
+def script_logger(name):
+    return lambda msg: log(f"  [{name}] {msg}")
+
+
+def script_step_counts(label, counts, shapes=((6, 1),), hvp_kinds=(),
+                       tiled=False, pairs=True):
+    """Gate a script's launches: K1 and K2 (with ``pairs``) and, per
+    (order, C) in ``shapes``, K4/K6 (K5/K7 with ``tiled``), and K3 of each
+    kind in ``hvp_kinds``."""
+    sp, ga = (("spread_tiled_by_shape", "gather_tiled_by_shape") if tiled
+              else ("spread_by_shape", "gather_by_shape"))
+    ok = not pairs or (counts["pair_fwd"] > 0 and counts["pair_bwd"] > 0)
+    ok = ok and all(counts[sp][s] > 0 and counts[ga][s] > 0 for s in shapes)
+    ok = ok and all(counts["pair_hvp_by_kind"][k] > 0 for k in hvp_kinds)
+    require(ok, f"phase 3l {label}: a kernel never launched: {counts}")
+
+
+def script_launches(counts):
+    """A script's launches per kernel record (phase 3l's column)."""
+    by = lambda key, c: sum(v for (o, ch), v in counts[key].items()  # noqa: E731
+                            if (ch == 1) == (c == 1))
+    return {"pair_fwd": counts["pair_fwd"], "pair_bwd": counts["pair_bwd"],
+            "pair_hvp": counts["pair_hvp"],
+            "spread": by("spread_by_shape", 1),
+            "gather": by("gather_by_shape", 1),
+            "spread_c3": by("spread_by_shape", 3),
+            "gather_c3": by("gather_by_shape", 3),
+            "spread_tiled": sum(counts["spread_tiled_by_shape"].values()),
+            "gather_tiled": sum(counts["gather_tiled_by_shape"].values())}
+
+
+def run_script(name, fn, walls, launches):
+    """fn() on the kernels with the counts set to 0 just before and read
+    just after; its wall time and counts are kept under ``name``."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    counts = read_counts()
+    launches[name] = counts
+    log(f"phase 3l {name}: {walls[name]:.1f} s wall, launches {counts}")
+    return out, counts
+
+
+def same_step(label, kern, plain, e_keys, f_keys, tol_f, tol_e=TOL_STEP_E,
+              scale=None):
+    """Gate a script's energies (relative, or over ``scale``) and forces
+    (relative RMSE) on the kernels against its run on the plain versions."""
+    for key in e_keys:
+        de = abs(kern[key] - plain[key]) / (scale or abs(plain[key]))
+        over = f" of the largest term {scale:.1f}" if scale else " relative"
+        log(f"phase 3l {label} {key}: kernels {kern[key]:.6f}, plain "
+            f"{plain[key]:.6f} ({de:.3e}{over})")
+        require(de < tol_e, f"phase 3l {label} {key}: {de}")
+    for key in f_keys:
+        df = rel_rmse(kern[key], plain[key])
+        log(f"phase 3l {label} {key}: force rel RMSE {df:.3e}")
+        require(bool(torch.isfinite(kern[key]).all()) and df < tol_f,
+                f"phase 3l {label} {key}: {df}")
+
+
+def scripts_path(record, card):
+    """Phase 3l: each of the user's scripts once on the card through its own
+    run() (its printed lines logged), on the kernels with its launches, and
+    again on the plain versions (``method='torch'``) where it computes a
+    deterministic energy or force, gated by the phase of the same system;
+    the scripts' own asserts; one forced volume move on the NPT script's end
+    state that changes the pair count, its refreshed list against a fresh
+    cell list."""
+    import torch.distributed as dist
+
+    from admp_tpu_torch import water_system
+    from admp_tpu_torch.examples import fit_params, run_npt, run_water
+    from admp_tpu_torch.examples import fluctuating_multipoles as fluct
+
+    walls, launches = {}, {}
+    quiet = lambda msg: None  # noqa: E731
+
+    # run_water --nmol 1000, plain (3e's tolerances) and --polarizable (3b's)
+    kern_times = {}
+    for pol, tol_f in ((False, TOL_STEP_F), (True, TOL_ADJ_F)):
+        name = "run_water" + (" --polarizable" if pol else "")
+        kern, counts = run_script(name, lambda pol=pol: run_water.run(
+            nmol=SCRIPT_NMOL, polarizable=pol,
+            log=script_logger(name)), walls, launches)
+        script_step_counts(name, counts, shapes=((6, 1), (6, 3)),
+                           hvp_kinds=("pol", "uu") if pol else ())
+        plain = run_water.run(nmol=SCRIPT_NMOL, polarizable=pol,
+                              method="torch", time_iters=0, log=quiet)
+        # the PME total is a residue of ~1e5 kJ/mol terms: over the largest
+        terms = plain["pme"].get_metrics(*plain["e_args"])
+        scale = max(abs(float(terms[t])) for t in ("e_real", "e_recip",
+                                                   "e_self"))
+        same_step(name, kern, plain, ("e_pme",), (), tol_f, scale=scale)
+        same_step(name, kern, plain, ("e_disp", "e_tt"),
+                  ("f_pme", "f_disp", "f_tt"), tol_f)
+        kern_times[name] = kern["ms_step"]
+        log(f"phase 3l {name}: PME grid {kern['grid']}, dispersion grid "
+            f"{(plain['disp'].K1, plain['disp'].K2, plain['disp'].K3)}")
+        if pol:
+            require(kern["converged"], "phase 3l run_water: SCF did not "
+                    "converge")
+
+    # run_npt --nmol 1000 --steps 20 --segments 3 (3h's system)
+    name = "run_npt"
+    npt, counts = run_script(name, lambda: run_npt.run(
+        SCRIPT_NMOL, NPT_SCRIPT_STEPS, NPT_SCRIPT_SEGMENTS,
+        log=script_logger(name)), walls, launches)
+    script_step_counts(name, counts)
+    for seg in npt["segments"]:
+        require(all(np.isfinite([seg["e"], seg["volume"], seg["t_inst"]])),
+                f"phase 3l run_npt: segment not finite {seg}")
+    log(f"phase 3l run_npt: pair counts per segment (before -> after the "
+        f"barostat) {[s['pairs'] for s in npt['segments']]}, accepted "
+        f"{npt['accepts']}/{NPT_SCRIPT_SEGMENTS}")
+    m = npt["system"]
+    plain_m = run_npt.build(SCRIPT_NMOL, m["positions"].device,
+                            torch.float32, "torch")
+    plain_e, plain_f, _ = run_npt.force_fn(
+        plain_m["energy"], plain_m["box"], plain_m["nl"].pairs)(
+            plain_m["positions"], None)
+    same_step(name, dict(e0=npt["e0"], f0=npt["f0"]),
+              dict(e0=float(plain_e), f0=plain_f), ("e0",), ("f0",),
+              TOL_STEP_F)
+    # the forced volume move on the end state
+    n = npt["n_atoms"]
+    pos, box, refreshed, fresh = run_npt.volume_move(
+        m, npt["state"].positions, npt["box"], npt["nl"],
+        math.exp(FORCED_DLNV / 3.0))
+    before = run_npt.n_pairs(npt["nl"], n)
+    after, n_fresh = run_npt.n_pairs(refreshed, n), run_npt.n_pairs(fresh, n)
+    keep = lambda nl: nl.pairs[nl.pairs[:, 0] < n]  # noqa: E731
+    same_set = torch.equal(*(torch.unique(keep(nl)[:, 0] * n + keep(nl)[:, 1])
+                             for nl in (refreshed, fresh)))
+    with torch.no_grad():
+        e_ref, e_fresh = (float(m["energy"](pos, box, nl.pairs))
+                          for nl in (refreshed, fresh))
+    de = abs(e_ref - e_fresh) / abs(e_fresh)
+    log(f"phase 3l run_npt forced volume move (ln V {FORCED_DLNV:+}): pair "
+        f"count {before} -> {after} refreshed at capacity "
+        f"{refreshed.capacity}, {n_fresh} in a fresh cell list, the same "
+        f"pairs {same_set}; energy refreshed {e_ref:.4f} vs fresh "
+        f"{e_fresh:.4f} ({de:.3e})")
+    require(after != before, "phase 3l: the volume move kept the pair count")
+    require(not bool(refreshed.did_overflow) and same_set,
+            "phase 3l: the refreshed list is not the fresh cell list's")
+    require(de < TOL_STEP_E, f"phase 3l: refreshed vs fresh energy {de}")
+
+    # fit_params main() (dispersion, 24 atoms) and multi_config(n_side=10),
+    # in float32 on the card, against the plain versions (3d's TOL_FIT)
+    with tempfile.TemporaryDirectory() as tmp:
+        s = water_system(n_side=1)
+        fit_params.FF_XML = write_water_inputs(tmp, s["positions"],
+                                               s["box"])[0]
+        name = "fit_params main"
+        fm, counts = run_script(name, lambda: fit_params.main(
+            dtype=torch.float32, log=script_logger(name)), walls, launches)
+        script_step_counts(name, counts, shapes=((6, 3),), pairs=False)
+        fp = fit_params.main(dtype=torch.float32, method="torch", log=quiet)
+        for key in ("e_disp",):
+            de = abs(fm[key] - fp[key]) / abs(fp[key])
+            log(f"phase 3l {name} {key}: kernels {fm[key]:.6f}, plain "
+                f"{fp[key]:.6f} ({de:.3e})")
+            require(de < TOL_STEP_E, f"phase 3l {name} {key}: {de}")
+        for key in ("dE_dmScales", "dE_dC6"):
+            dg = rel_rmse(torch.as_tensor(fm[key]), torch.as_tensor(fp[key]))
+            log(f"phase 3l {name} {key}: rel RMSE {dg:.3e}")
+            require(dg < TOL_STEP_F, f"phase 3l {name} {key}: {dg}")
+        dl = [abs(a - b) / abs(b) for a, b in zip(
+            fm["losses"][:FIT_COMPARE_STEPS], fp["losses"])]
+        log(f"phase 3l {name}: C6 error {fm['rel0']:.3f} -> "
+            f"{fm['rel1']:.4f} (plain {fp['rel1']:.4f}); first losses rel "
+            f"{[f'{x:.2e}' for x in dl]}")
+        require(max(dl) < TOL_FIT, f"phase 3l {name} losses: {dl}")
+    name = "fit_params multi_config"
+    # at n_side=10 the script's own loss assert does not hold with its
+    # settings (Adam 2e-3 oscillates: the same in float64 on the CPU on the
+    # plain path, 14.9 -> 21.0), so it runs there without the assert, gated
+    # against the plain versions, and with the assert at its default size
+    mc, counts = run_script(name, lambda: fit_params.multi_config(
+        n_side=FIT_N_SIDE, dtype=torch.float32, log=script_logger(name),
+        check=False), walls, launches)
+    script_step_counts(name, counts, hvp_kinds=("perm",))
+    mp = fit_params.multi_config(n_side=FIT_N_SIDE, n_epochs=FIT_PLAIN_EPOCHS,
+                                 dtype=torch.float32, method="torch",
+                                 log=quiet, check=False)
+    dl = [abs(a - b) / abs(b) for a, b in zip(mc["losses"], mp["losses"])]
+    log(f"phase 3l {name}: {mc['n_atoms']} atoms, loss {mc['l0']:.4g} -> "
+        f"{mc['l1']:.4g} (ratio {mc['l1'] / mc['l0']:.3f}; the script asks "
+        f"< 0.2), losses {[round(x, 4) for x in mc['losses']]}; ms per fit "
+        f"step {[round(x, 1) for x in mc['step_ms']]}; first {len(dl)} "
+        f"losses rel to plain {[f'{x:.2e}' for x in dl]}")
+    require(mc["n_atoms"] == 3 * FIT_N_SIDE ** 3 and mc["steps"] == 20
+            and mc["r1_steps"] == 10
+            and bool(np.isfinite(mc["losses"]).all()) and max(dl) < TOL_FIT,
+            f"phase 3l {name}: {mc['steps']} steps, losses {dl}")
+    fit_params.multi_config(dtype=torch.float32,
+                            log=script_logger(name + " (24 atoms)"))
+
+    # fluctuating_multipoles --n-side 32 (3f's tolerances) ...
+    name = "fluctuating_multipoles"
+    fk, counts = run_script(name, lambda: fluct.run(
+        N98_SIDE, log=script_logger(name)), walls, launches)
+    script_step_counts(name, counts, tiled=True)
+    require(fk["route"] == "cuda2d", f"phase 3l {name}: route {fk['route']}")
+    box_sys = fk["box_sys"]
+    fp = fluct.run(N98_SIDE, method="torch", time_steps=0, box_sys=box_sys,
+                   log=quiet)
+    with torch.no_grad():
+        pos = box_sys["positions"]
+        terms = fp["force"].get_metrics(
+            pos, box_sys["box"], box_sys["nlist"].pairs,
+            fluct.fluctuating_q_local(pos, box_sys["q_cart"]),
+            box_sys["m_scales"])
+    scale = max(abs(float(terms[t])) for t in ("e_real", "e_recip",
+                                               "e_self"))
+    same_step(name, fk, fp, ("e",), ("f",), TOL_STEP_F98, TOL_E98, scale)
+    # ... and its sharded branch at world size 1 over NCCL (3j's)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=pos.device)
+    try:
+        name = "fluctuating_multipoles --sharded"
+        sk, counts = run_script(name, lambda: fluct.run(
+            N98_SIDE, sharded=True, box_sys=box_sys,
+            log=script_logger(name)), walls, launches)
+        steps = 1 + FLUCT_TIMED_STEPS
+        require(all(counts[k] == steps for k in ("pair_fwd", "pair_bwd",
+                                                 "spread", "gather")),
+                f"phase 3l {name}: K1/K2/K4/K6 not once per step: {counts}")
+        sp = fluct.run(N98_SIDE, sharded=True, method="torch", time_steps=0,
+                       box_sys=box_sys, log=quiet)
+        same_step(name, sk, sp, ("e",), ("f",), TOL_STEP_F98, TOL_E98, scale)
+    finally:
+        dist.destroy_process_group()
+
+    ms = {"run_water": kern_times["run_water"],
+          "run_water --polarizable": kern_times[
+              "run_water --polarizable"],
+          "run_npt": 1e3 * npt["wall_s"] / (NPT_SCRIPT_STEPS
+                                            * NPT_SCRIPT_SEGMENTS),
+          "fit_params main": statistics.median(fm["step_ms"]),
+          "fit_params multi_config": statistics.median(mc["step_ms"]),
+          "fluctuating_multipoles": fk["ms_step"],
+          "fluctuating_multipoles --sharded": sk["ms_step"]}
+    what = {"run_water": "ms per PME energy+force (time_fn, 5 calls)",
+            "run_npt": "ms per Langevin step, the segments' wall over their "
+                       "steps (refreshes and barostat moves included)",
+            "fit_params main": "ms per fit step (median of 150)",
+            "fit_params multi_config": "ms per fit step (median of 20)",
+            "fluctuating_multipoles": "ms per energy+force (median of 3)"}
+    for label, wall in walls.items():
+        unit = next(v for k, v in what.items() if label.startswith(k))
+        log(f"phase 3l [{card}]: {label}: {wall:.1f} s wall, "
+            f"{ms[label]:.3f} {unit}")
+    for rec_name, rec in record.items():
+        if not rec_name.startswith("_"):
+            rec["script_launches"] = {
+                label: script_launches(c)[rec_name]
+                for label, c in launches.items()}
+    return ms
+
+
 def time_runs(run, n_steps=N_STEPS):
     """Median ms/step over N_REPEATS calls of run(n_steps), CUDA events
     around each call (each ends in a synchronize); run returns a list of the
@@ -3073,6 +3309,9 @@ def large_pair_inputs(w):
     """K2's 'perm' tables at the 98k step's first configuration: lmax 2,
     its sparse exclusions and cell-list pair slots (1,703,936), the
     fluctuating multipoles in the global frame."""
+    from admp_tpu_torch.examples.fluctuating_multipoles import (
+        fluctuating_q_local,
+    )
     from admp_tpu_torch.models.pme import _pair_indices, _pair_scalars
     from admp_tpu_torch.ops.exclusions import (
         as_covalent_map,
@@ -3469,7 +3708,7 @@ def main():
     # (another commit's checkout, to compare in one run);
     # --kernels DIR [DIR ...]: only the device times of K2-K7,
     # this tree's beside each DIR's in one process
-    # --sharded: only phases 1, 3j and 3k
+    # --sharded: only phases 1, 3j and 3k; --scripts: only phases 1 and 3l
     mode = sys.argv[1] if len(sys.argv) > 1 else None
     other = sys.argv[2] if mode in ("--launchers", "--adjoint") else None
     sys.path.insert(0, other or str(ROOT))
@@ -3533,6 +3772,10 @@ def main():
     if mode == "--sharded":
         sharded_path(w, build_large(dev), record, card)
         return 0
+    if mode == "--scripts":
+        scripts_path(record, card)
+        log("phase 3l: the user's scripts ok")
+        return 0
     log(f"workload: {w['positions'].shape[0]} atoms, "
         f"{w['pairs'].shape[0]} pair slots (dense), "
         f"{w['ff_pairs'].shape[0]} (cell list), built in "
@@ -3563,6 +3806,8 @@ def main():
     prec_forces, prec_pol, prec = precision_path(w)
     log("phase 3i: precision modes ok")
     sharded_path(w, w98, record, card)
+    scripts_path(record, card)
+    log("phase 3l: the user's scripts ok")
 
     ms, times, iters = time_steps(force, w)
     ms_plain, times_plain, _ = time_steps(plain32, w)
@@ -3652,7 +3897,8 @@ def main():
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    sharded_launches=r["sharded_launches"])
+                    sharded_launches=r["sharded_launches"],
+                    script_launches=r["script_launches"])
                for name, r in record.items()]
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -38,7 +38,9 @@ atom order under the card's atomics, and the kernel route of each
 real-space and spread mode against its plain f32 route (forces 1e-4), K1
 launched twice per step under 'f64-near'. K4 and K6 on the sharded spread's
 halo slabs (1e-5 max|mesh|, bit for bit) at the 98k box's P = 1 and P = 4
-slab shapes.
+slab shapes. The user's script admp_tpu_torch.examples.run_water at
+--nmol 27, plain and --polarizable, on the kernels against the plain
+versions (energies 1e-5, forces 1e-4; 2e-4 for the exact adjoint).
 """
 
 import numpy as np
@@ -1016,3 +1018,30 @@ def test_precision_modes_take_the_kernels(dev, mode):
     scale = max(abs(float(terms[k])) for k in ("e_real", "e_recip", "e_self"))
     assert abs(float(e_k) - float(e_p)) <= 1e-5 * scale
     assert _rel(g_k, g_p) < 1e-4
+
+
+@pytest.mark.parametrize("polarizable", [False, True])
+def test_run_water_script_kernels_match_plain(dev, polarizable):
+    """admp_tpu_torch.examples.run_water at --nmol 27 on the card, on the
+    kernels ('auto') against the plain versions ('torch'): each energy 1e-5
+    relative, each force 1e-4 relative RMSE (2e-4 for the polarizable exact
+    adjoint), K1/K2 and K4/K6 launched (K3 under --polarizable)."""
+    from admp_tpu_torch.examples import run_water
+
+    quiet = dict(nmol=27, polarizable=polarizable, time_iters=0,
+                 log=lambda *a: None)
+    k = (P.launch_pair_fwd.launches, P.launch_pair_bwd.launches,
+         P.launch_pair_hvp.launches, S.launch_spread.launches,
+         S.launch_gather.launches)
+    kern = run_water.run(method="auto", **quiet)
+    k = [b - a for a, b in zip(k, (
+        P.launch_pair_fwd.launches, P.launch_pair_bwd.launches,
+        P.launch_pair_hvp.launches, S.launch_spread.launches,
+        S.launch_gather.launches))]
+    plain = run_water.run(method="torch", **quiet)
+    assert min(k[0], k[1], k[3], k[4]) > 0 and (k[2] > 0) == polarizable
+    for e in ("e_pme", "e_disp", "e_tt"):
+        assert abs(kern[e] - plain[e]) <= 1e-5 * abs(plain[e]), e
+    tol_f = 2e-4 if polarizable else 1e-4
+    for f in ("f_pme", "f_disp", "f_tt"):
+        assert _rel(kern[f], plain[f]) < tol_f, f

@@ -265,10 +265,12 @@ def launch_pair_fwd(g_i, g_j, scl, scal, lmax: int, kind: str):
     if status:
         build.check(status, f"pair forward ({kind}, lmax={lmax})")
     launch_pair_fwd.launches += 1
+    launch_pair_fwd.by_kind[kind] += 1
     return e
 
 
 launch_pair_fwd.launches = 0
+launch_pair_fwd.by_kind = dict.fromkeys(KINDS, 0)  # the launches per kind
 
 
 def launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax: int, kind: str):
@@ -293,11 +295,13 @@ def launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax: int, kind: str):
     if status:
         build.check(status, f"pair backward ({kind}, lmax={lmax})")
     launch_pair_bwd.launches += 1
+    launch_pair_bwd.by_kind[kind] += 1
     # the blocks' sums in a fixed order: deterministic
     return dgi, dgj, dscl, dscal_blocks.sum(dim=0)
 
 
 launch_pair_bwd.launches = 0
+launch_pair_bwd.by_kind = dict.fromkeys(KINDS, 0)  # the launches per kind
 
 
 def launch_pair_hvp(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl, c_scal,

@@ -89,9 +89,18 @@ Phases (any failure exits nonzero; no phase failure is caught):
      and on plain f64 (forces 1e-3; 98k energy within 2x the plain f32
      path's); K1, K2, K4 and K6 launched in every sharded energy+force, K3
      ('pol', 'uu') in the exact adjoint; K4 and K6 on the 98k halo slabs
-     of P = 1 and P = 4 against their plain versions; the comm tally per
-     step; ms/step sharded and single-device (drift, forces consumed) and
-     one profiler window of each sharded step;
+     of P = 1 and P = 4 against their plain versions, K4/K6 timed on the
+     P = 1 slab (310 x 305 x 305) beside their plain versions, one
+     PyTorch call and their bounds; the comm tally per step; ms/step
+     sharded and single-device (drift, forces consumed) and one profiler
+     window of each sharded step; the EngineConfig keywords
+     spread_precision='f64' and compensated_sums=True on the two
+     3000-atom calls at P = 1 over NCCL and P = 2 over gloo, against the
+     single-device kernels under the same keyword (energy 1e-5, forces
+     1e-4) and plain f64 (forces 1e-3), every kernel launched, the same
+     PCG iterations on every rank, K4/K6 on the halo slabs of P = 1 and 2
+     on stencils of float64 weights, ms/step and peak bytes
+     (chiprun_out/chip_smoke/sharded_keywords.json);
   3k. the same two 3000-atom calls on 2 and then 4 gloo ranks sharing the
      card (one start-up; admp_tpu_torch/parallel/launch.py), with the bins
      sized for the lattice atom order (halo_cap_factor = P), against 3j's
@@ -112,6 +121,36 @@ Phases (any failure exits nonzero; no phase failure is caught):
      move (ln V - 0.02) on the NPT script's end state, which must change the
      pair count, its refreshed list against a fresh cell list (the same
      pairs, the same energy within 1e-5);
+  3m. the precision modes on the polarizable MD step (the main path's
+     SCFConfig.md(), cached influence, the ladder's grid: 96^3, the DS row
+     128^3 with an order-6 matvec mesh): plain-f32, high_accuracy(),
+     'f64-all', spread-f64 and ds_accuracy() over a cold and 3 drift
+     steps, each on the kernels against the plain f64 path at the same
+     grid, kappa and matvec (energy, forces, induced dipoles, each within
+     max(the row's LADDER bound, 2 x the same mode's plain f32 route's own
+     error); a row without an energy bound also within the plain route's
+     + 1e-6 of the largest term) and against the same mode's plain f32
+     route (forces and dipoles 1e-4, energy 1e-6 of the largest term, the
+     f64 path's real, reciprocal or self energy); K1/K2 by kind: 'pol' 2
+     per step (4 under 'f64-near', 0
+     under 'f64-all'), 'uu' once per PCG matvec, K3 never; K4/K6 2 per step
+     on an f32 mesh; the PCG iterations of each route and the peak bytes;
+     in phase 4 each row's ms/step and a profiler window of the
+     high_accuracy() step (chiprun_out/chip_smoke/precision_pol.json);
+  3n. the precision modes on the 98k system: spread-f64 (K5/K7 on stencils
+     of float64 weights, also held alone against their plain tiled
+     versions), high_accuracy() and 'f64-all' at 320^3 and 256^3, one
+     energy+force step each against the plain f64 step (forces relative
+     RMSE and |dE| over the largest term, within max(the LADDER bound or
+     TOL_E98, 2 x the plain f32 route's own)) and the same mode's plain f32
+     route (forces 2e-4, energy 1e-6 of the largest term), with launches,
+     peak bytes and ms/step at 320^3 (a profiler window of the
+     high_accuracy() step there); then ds_accuracy() at the grid its
+     constructor picks (512^3 at 98k), or at the largest DS_SIDES size whose
+     byte count (DS_BYTES_PER_POINT, DS_BYTES_PER_ATOM) fits the card and
+     whose step takes at most 60 s, each size passed over logged as a size
+     limit, its peak logged beside the count
+     (chiprun_out/chip_smoke/precision_98k.json);
   4. timing: ms/step of the MD step (median of 3 x 10 steps, CUDA events), of
      the exact-adjoint step (also with adjoint_warmstart) and of the
      full-force-field step, ms per fitting step, ms/step of the 98k step on
@@ -135,11 +174,13 @@ Phases (any failure exits nonzero; no phase failure is caught):
     python3 chip_smoke.py --adjoint DIR
     python3 chip_smoke.py --sharded
     python3 chip_smoke.py --scripts
+    python3 chip_smoke.py --precision [3m] [3n] [keywords]
 
 print only that last line, or only the exact-adjoint step's ms/step and
 profile, for the admp_tpu_torch in DIR (another commit's checkout, or .),
 so that two trees compare in one run on the card, or run only phases 1,
-3j and 3k, or only phases 1 and 3l, and
+3j and 3k, or only phases 1 and 3l, or only phases 1, 3m (with its phase
+4), 3n and the keywords of 3j, and
 
     python3 chip_smoke.py --kernels DIR [DIR ...]
 
@@ -854,7 +895,8 @@ def reset_counts():
               S.launch_spread, S.launch_gather, S.launch_spread_tiled,
               S.launch_gather_tiled):
         c.launches = 0
-    P.launch_pair_hvp.by_kind = dict.fromkeys(P.KINDS, 0)
+    for c in (P.launch_pair_fwd, P.launch_pair_bwd, P.launch_pair_hvp):
+        c.by_kind = dict.fromkeys(P.KINDS, 0)
     for c in (S.launch_spread, S.launch_gather, S.launch_spread_tiled,
               S.launch_gather_tiled):
         c.by_shape = dict.fromkeys(S.SHAPES, 0)
@@ -869,6 +911,8 @@ def read_counts():
             "pair_hvp": P.launch_pair_hvp.launches,
             "spread": S.launch_spread.launches,
             "gather": S.launch_gather.launches,
+            "pair_fwd_by_kind": dict(P.launch_pair_fwd.by_kind),
+            "pair_bwd_by_kind": dict(P.launch_pair_bwd.by_kind),
             "pair_hvp_by_kind": dict(P.launch_pair_hvp.by_kind),
             "spread_by_shape": dict(S.launch_spread.by_shape),
             "gather_by_shape": dict(S.launch_gather.by_shape),
@@ -1039,9 +1083,10 @@ def fitting_path(w, record):
     return times
 
 
-def make_ff(w, device, dtype, method):
+def make_ff(w, device, dtype, method, **keywords):
     """The full force field of bench.py's build_nonpol_workload in the port:
-    (total(positions, c_list) -> energy, the dispersion force)."""
+    (total(positions, c_list) -> energy, the dispersion force); the
+    EngineConfig ``keywords`` reach the multipolar PME."""
     from admp_tpu_torch import (
         ADMPDispPmeForce,
         ADMPPmeForce,
@@ -1055,7 +1100,7 @@ def make_ff(w, device, dtype, method):
                        s["covalent_map"], RC, ETHRESH, lmax=LMAX,
                        config=EngineConfig(cache_influence=True,
                                            pair_kernel=method,
-                                           spread_method=method),
+                                           spread_method=method, **keywords),
                        device=device, dtype=dtype)
     disp = ADMPDispPmeForce(s["box"], s["covalent_map"], RC, ETHRESH, PMAX,
                             config=EngineConfig(disp_ethresh=DISP_ETHRESH,
@@ -1606,15 +1651,15 @@ def langevin_runner(m):
 # ---------------------------------------------------------------------------
 
 
-def build_large(device):
-    """examples/fluctuating_multipoles.py --n-side 32 in the port: 98,304
-    atoms, its sparse exclusion table and cell list, with their build
-    times."""
+def build_large(device, n_side=N98_SIDE):
+    """examples/fluctuating_multipoles.py --n-side 32 in the port (or at
+    ``n_side``): 98,304 atoms, its sparse exclusion table and cell list,
+    with their build times."""
     from admp_tpu_torch import neighbor_list_cell, water_system
     from admp_tpu_torch.ops.exclusions import build_sparse_exclusions
 
     t0 = time.perf_counter()
-    s = water_system(n_side=N98_SIDE, spacing=SPACING, jitter=N98_JITTER,
+    s = water_system(n_side=n_side, spacing=SPACING, jitter=N98_JITTER,
                      seed=SEED, exclusions=None)
     n = s["positions"].shape[0]
     t_sys = time.perf_counter() - t0
@@ -1643,19 +1688,25 @@ def build_large(device):
                     s["positions"].shape), **f32))
 
 
-def make_large_force(w, dtype, pair_kernel, spread_method, k=None):
-    """The example's force: fixed multipoles, lmax 2, the 5-smooth grid
-    (320^3 here), i-sorted pairs; ``k`` sets K1..K3 as its --k does."""
-    from admp_tpu_torch import ADMPPmeForce, EngineConfig
+def large_force(w, config, dtype):
+    """The example's force under ``config``: fixed multipoles, lmax 2, its
+    sparse exclusions."""
+    from admp_tpu_torch import ADMPPmeForce
 
     s = w["sys"]
-    force = ADMPPmeForce(
-        s["box"], s["axis_types"], s["axis_indices"], w["sparse"], RC,
-        ETHRESH, lmax=LMAX,
-        config=EngineConfig(fft_friendly_grid=True, pairs_i_sorted=True,
-                            pair_kernel=pair_kernel,
-                            spread_method=spread_method),
-        device=w["positions"].device, dtype=dtype)
+    return ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                        w["sparse"], RC, ETHRESH, lmax=LMAX, config=config,
+                        device=w["positions"].device, dtype=dtype)
+
+
+def make_large_force(w, dtype, pair_kernel, spread_method, k=None):
+    """The example's force: the 5-smooth grid (320^3 here), i-sorted pairs;
+    ``k`` sets K1..K3 as its --k does."""
+    from admp_tpu_torch import EngineConfig
+
+    force = large_force(w, EngineConfig(
+        fft_friendly_grid=True, pairs_i_sorted=True, pair_kernel=pair_kernel,
+        spread_method=spread_method), dtype)
     if k:
         force.K1 = force.K2 = force.K3 = k
         force.refresh_calculators()
@@ -1691,8 +1742,10 @@ def run_large(force, w, n_steps, dtype=torch.float32):
     return energies
 
 
-def large_stencil(w, grid, order=6):
-    """The 98k step's energy-mesh stencil values at its first step."""
+def large_stencil(w, grid, order=6, precision=None):
+    """The 98k step's energy-mesh stencil values at its first step; with
+    ``precision='f64'`` computed in float64 and rounded to float32, as
+    spread_precision='f64' feeds the spread."""
     from admp_tpu_torch.examples.fluctuating_multipoles import (
         fluctuating_q_local,
     )
@@ -1700,8 +1753,8 @@ def large_stencil(w, grid, order=6):
 
     q_local = fluctuating_q_local(w["positions"], w["q_cart"])
     m_u0, u0, alpha = atom_spread_alpha(w["positions"], w["box"], q_local,
-                                        grid, LMAX, order)
-    q = spread_points_separable(u0, alpha, LMAX, order)
+                                        grid, LMAX, order, precision)
+    q = spread_points_separable(u0, alpha, LMAX, order).float()
     return m_u0.contiguous(), q.reshape(q.shape[0], 1, -1).contiguous()
 
 
@@ -1720,13 +1773,52 @@ def crowded_stencil(dev, grid, order, n_ch, n=N_CROWD):
     return m_u0, q
 
 
+def check_tiled(grid, order, m_u0, q, rng, label=""):
+    """K5 against its plain version and the plain spread (TOL_SPREAD of
+    max|mesh|; the same mesh on a second launch) and K7 bit for bit
+    against its plain version and the plain gather, on one case; returns
+    (K5's max abs error, K7's, the random cotangent mesh)."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    n_ch = q.shape[1]
+    bins = S.tile_bins(m_u0, grid, S.TILE, order)
+    crowd = int((bins.offsets[1:] - bins.offsets[:-1]).max())
+    mesh_k = S.launch_spread_tiled(bins, q, grid, order)
+    again = S.launch_spread_tiled(bins, q, grid, order)
+    mesh_t = S.spread_tiled_torch(bins, q, grid, order)
+    mesh_p = S.spread_torch(m_u0, q, grid, order)
+    torch.cuda.synchronize()
+    scale = float(mesh_t.abs().max())
+    err = float((mesh_k - mesh_t).abs().max())
+    err_p = float((mesh_k - mesh_p).abs().max())
+    det = bool(torch.equal(mesh_k, again))
+    g_mesh = torch.tensor(rng.standard_normal((n_ch, *grid)), device=q.device,
+                          dtype=torch.float32)
+    out_k = S.launch_gather_tiled(bins, g_mesh, grid, order)
+    out_t = S.gather_tiled_torch(bins, g_mesh, grid, order)
+    same = (torch.equal(out_k, out_t)
+            and torch.equal(out_k, S.gather_torch(m_u0, g_mesh, grid, order)))
+    log(f"tiled spread (K5){label} order {order} C={n_ch} N={m_u0.shape[0]} "
+        f"grid={grid}, at most {crowd} atoms in a bin: max abs err "
+        f"{err:.3e} = {err / scale:.3e} x max|mesh| vs its plain "
+        f"version, {err_p / scale:.3e} vs the plain spread; the same "
+        f"mesh on a second launch {det}; tiled gather (K7) bitwise "
+        f"equal {same}")
+    require(err <= TOL_SPREAD * scale and err_p <= TOL_SPREAD * scale,
+            f"tiled spread{label} order {order} C={n_ch} {grid}: "
+            f"{err / scale}")
+    require(det, f"tiled spread{label} order {order} C={n_ch} {grid}: "
+            "another mesh on a second launch")
+    require(same, f"tiled gather{label} order {order} C={n_ch} {grid} "
+            "differs")
+    return err, float((out_k - out_t).abs().max()), g_mesh
+
+
 def check_spread_tiled(w, record):
     """K5 and K7 against their plain versions (and the plain spread and
     gather) at the 98k shapes: (6, 1) at 320^3 and 256^3 on the step's
     stencils, (4, 3) at 320^3 on random stencil values, and K5 on one
-    crowded tile at (6, 1) and (4, 3). K5 must give the same mesh on a
-    second launch."""
-    from admp_tpu_torch.ops.cuda import spread as S
+    crowded tile at (6, 1) and (4, 3) (check_tiled)."""
     from admp_tpu_torch.ops.reciprocal import mesh_coordinates
 
     rng = np.random.default_rng(8)
@@ -1742,40 +1834,10 @@ def check_spread_tiled(w, record):
     for order, n_ch in ((6, 1), (4, 3)):
         cases.append((grid, order) + crowded_stencil(dev, grid, order, n_ch))
     for grid, order, m_u0, q in cases:
-        n_ch = q.shape[1]
-        bins = S.tile_bins(m_u0, grid, S.TILE, order)
-        crowd = int((bins.offsets[1:] - bins.offsets[:-1]).max())
-        mesh_k = S.launch_spread_tiled(bins, q, grid, order)
-        again = S.launch_spread_tiled(bins, q, grid, order)
-        mesh_t = S.spread_tiled_torch(bins, q, grid, order)
-        mesh_p = S.spread_torch(m_u0, q, grid, order)
-        torch.cuda.synchronize()
-        scale = float(mesh_t.abs().max())
-        err = float((mesh_k - mesh_t).abs().max())
-        err_p = float((mesh_k - mesh_p).abs().max())
-        det = bool(torch.equal(mesh_k, again))
-        g_mesh = torch.tensor(rng.standard_normal((n_ch, *grid)), device=dev,
-                              dtype=torch.float32)
-        out_k = S.launch_gather_tiled(bins, g_mesh, grid, order)
-        out_t = S.gather_tiled_torch(bins, g_mesh, grid, order)
-        same = (torch.equal(out_k, out_t)
-                and torch.equal(out_k, S.gather_torch(m_u0, g_mesh, grid,
-                                                      order)))
-        log(f"tiled spread (K5) order {order} C={n_ch} N={m_u0.shape[0]} "
-            f"grid={grid}, at most {crowd} atoms in a bin: max abs err "
-            f"{err:.3e} = {err / scale:.3e} x max|mesh| vs its plain "
-            f"version, {err_p / scale:.3e} vs the plain spread; the same "
-            f"mesh on a second launch {det}; tiled gather (K7) bitwise "
-            f"equal {same}")
-        require(err <= TOL_SPREAD * scale and err_p <= TOL_SPREAD * scale,
-                f"tiled spread order {order} C={n_ch} {grid}: {err / scale}")
-        require(det, f"tiled spread order {order} C={n_ch} {grid}: another "
-                "mesh on a second launch")
-        require(same, f"tiled gather order {order} C={n_ch} {grid} differs")
+        err, err_g, g_mesh = check_tiled(grid, order, m_u0, q, rng)
         if "_tiled_inputs" not in record:  # the step's stencils at 320^3
             record["spread_tiled"]["max_abs_err"] = err
-            record["gather_tiled"]["max_abs_err"] = float(
-                (out_k - out_t).abs().max())
+            record["gather_tiled"]["max_abs_err"] = err_g
             record["_tiled_inputs"] = (m_u0, q, g_mesh)
 
 
@@ -2224,6 +2286,441 @@ def time_precision(forces, pol, w, card, out):
     (OUT_DIR / "precision.json").write_text(json.dumps(out, indent=1))
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: the precision modes on the polarizable MD step
+# ---------------------------------------------------------------------------
+
+# ladder rows on the main path's polarizable MD step (SCFConfig.md(), cached
+# influence), at the constructor's grid as in 3i (96^3; the DS row 128^3);
+# plain-f32 is the baseline of the PCG iterations
+POL_LADDER = ("plain-f32", "high_accuracy", "f64-all", "spread-f64",
+              "ds_accuracy")
+N_POL_LADDER_STEPS = 4  # a cold step and 3 drift steps
+# K1/K2 launches per energy evaluation by realspace_precision (default 1):
+# none under 'f64-all' (every pair in float64), two under 'f64-near' (the
+# main and the near pass); an MD step evaluates the energy twice (the field
+# at the warm start, then the energy at u*), each with its backward
+REAL_PASSES = {"f64-all": 0, "f64-near": 2}
+
+
+def pol_ladder_force(w, spec, method, dtype, grid=None, matvec_order=None):
+    """A row's MD-profile force; ``matvec_order`` replaces the profile's
+    order-4 matvec mesh."""
+    import dataclasses
+
+    from admp_tpu_torch import SCFConfig
+
+    scf = SCFConfig.md()
+    if matvec_order is not None:
+        scf = dataclasses.replace(scf, matvec_spread_order=matvec_order)
+    return ladder_force(w, ladder_config(spec, method, scf=scf,
+                                         cache_influence=True),
+                        dtype, lpol=True, grid=grid)
+
+
+def pol_steps(force, w, n_steps, dtype=torch.float32):
+    """n_steps polarizable steps from the main path's positions, drifting in
+    float32 whatever ``dtype`` (forces consumed, dipoles carried): per step
+    (energy, forces, induced dipoles, PCG iterations, converged), and the
+    PCG matvecs they took (calls of the force's u-quadratic energy)."""
+    energy_uu, calls = force.energy_uu, [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return energy_uu(*args)
+
+    force.energy_uu = counted
+    try:
+        p, out = w["positions"], []
+        for _ in range(n_steps):
+            e, g = force.get_forces(*pol_args(w, p, dtype))
+            out.append((e, g, force.U_ind, force.n_cycle, force.lconverg))
+            p = p + w["drift"] + 0.0 * g.to(p.dtype)
+    finally:
+        force.energy_uu = energy_uu
+    return out, calls[0]
+
+
+def step_errors(run, ref):
+    """The largest, over the steps, force and dipole relative RMSE and
+    |dE| (kJ/mol) of ``run`` against ``ref`` (pol_steps' lists)."""
+    return dict(f=max(rel_rmse(a[1], b[1]) for a, b in zip(run, ref)),
+                u=max(rel_rmse(a[2], b[2]) for a, b in zip(run, ref)),
+                e=max(abs(float(a[0]) - float(b[0]))
+                      for a, b in zip(run, ref)))
+
+
+def json_counts(counts, keys):
+    """The launch counts of ``keys``, their (order, C) keys as strings."""
+    return {k: ({f"{o},{c}": v for (o, c), v in counts[k].items()}
+                if k.endswith("by_shape") else counts[k]) for k in keys}
+
+
+def peak_bytes(fn):
+    """(fn(), the card's peak allocated bytes while it ran, above what was
+    allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def pol_ladder_path(w):
+    """Phase 3m: each POL_LADDER row's MD steps on the kernels against the
+    plain float64 path at the same grid and kappa (energy, forces, induced
+    dipoles) and against the same mode's plain f32 route, with the K1/K2
+    launches by kind, the PCG iterations and the peak memory; returns the
+    kernel-route forces for phase 4 and the results."""
+    lad = {row[0]: row[1:] for row in LADDER}
+    n = N_POL_LADDER_STEPS
+    oracles, results, forces = {}, {}, {}
+    for name in POL_LADDER:
+        spec, tol_f, tol_e = lad[name]
+        kern = pol_ladder_force(w, spec, "auto", torch.float32)
+        grid = (kern.K1, kern.K2, kern.K3)
+        # the DS engine spreads at order 6 only (both packages), so the DS
+        # row's matvec mesh is order 6 where the profile's is order 4: its
+        # float64 oracle runs the same matvec
+        mv_order = 6 if kern.config.recip_precision == "ds" else None
+        if (grid, mv_order) not in oracles:
+            oracle = pol_ladder_force(w, {}, "torch", torch.float64, grid,
+                                      mv_order)
+            oracle.kappa = kern.kappa
+            oracle.refresh_calculators()
+            require(oracle.matvec_grid == kern.matvec_grid,
+                    f"phase 3m oracle matvec grid {oracle.matvec_grid}")
+            ref = pol_steps(oracle, w, n, torch.float64)[0]
+            with torch.no_grad():
+                terms = oracle.get_metrics(*pol_args(w, w["positions"],
+                                                     torch.float64))
+            oracles[grid, mv_order] = ref, max(
+                abs(float(terms[t])) for t in ("e_real", "e_recip", "e_self"))
+        ref, e_scale = oracles[grid, mv_order]
+        reset_counts()
+        (steps, matvecs), peak = peak_bytes(lambda: pol_steps(kern, w, n))
+        counts = read_counts()
+        plain, _ = pol_steps(pol_ladder_force(w, spec, "torch",
+                                              torch.float32), w, n)
+        ek, ep, ekp = (step_errors(steps, ref), step_errors(plain, ref),
+                       step_errors(steps, plain))
+        # the total is a residue of ~1e6 kJ/mol terms: energies are set
+        # over the largest of them (the plain f64 path's first step), as
+        # the 98k step's (TOL_E98)
+        de_kp = ekp["e"] / e_scale
+        iters = {"kernel": [s[3] for s in steps], "plain32": [s[3] for s in
+                                                             plain],
+                 "plain64": [s[3] for s in ref]}
+        # the bound of the row: admp_tpu's tests set none for a polarizable
+        # path, so max(the row's fixed-box bound in LADDER, 2 x the same
+        # mode's plain f32 route's own error against float64); a row without
+        # an energy bound in LADDER also within the plain route's own +
+        # TOL_E98 of the largest term (the kernel-vs-plain energy gate below
+        # implies it; at the f32 floor the two routes' residues differ by
+        # more than 2x)
+        bound = dict(f=max(tol_f or 0.0, 2 * ep["f"]),
+                     u=max(tol_f or 0.0, 2 * ep["u"]),
+                     e=(max(tol_e, 2 * ep["e"]) if tol_e is not None else
+                        max(2 * ep["e"], ep["e"] + TOL_E98 * e_scale)))
+        want_pol = 2 * REAL_PASSES.get(kern.config.realspace_precision, 1) * n
+        results[name] = dict(
+            grid=grid, matvec_grid=kern.matvec_grid, vs_f64=ek,
+            plain32_vs_f64=ep, e_scale=e_scale,
+            kernel_vs_plain32=dict(ekp, e_over_term=de_kp),
+            bound=bound, iterations=iters, matvecs=matvecs,
+            peak_bytes=peak,
+            launches=json_counts(counts, (
+                "pair_fwd_by_kind", "pair_bwd_by_kind", "pair_hvp",
+                "spread_by_shape", "gather_by_shape")))
+        log(f"phase 3m {name} at {grid} (matvec {kern.matvec_grid}), "
+            f"{n} MD steps: vs plain f64 forces {ek['f']:.3e}, dipoles "
+            f"{ek['u']:.3e}, |dE| {ek['e']:.3e} kJ/mol (bounds "
+            f"{bound['f']:.3e}, {bound['u']:.3e}, {bound['e']:.3e}; the "
+            f"plain f32 route {ep['f']:.3e}, {ep['u']:.3e}, {ep['e']:.3e}); "
+            f"kernel vs plain f32 route forces {ekp['f']:.3e}, dipoles "
+            f"{ekp['u']:.3e}, |dE| {ekp['e']:.3e} kJ/mol = {de_kp:.3e} of "
+            f"the largest term ({e_scale:.1f}); PCG iterations "
+            f"{iters}; {matvecs} matvecs; peak {peak / 2**20:.1f} MiB; "
+            f"launches K1 {counts['pair_fwd_by_kind']}, K2 "
+            f"{counts['pair_bwd_by_kind']}, K4 (6, 1) "
+            f"{counts['spread_by_shape'][6, 1]}, K6 (6, 1) "
+            f"{counts['gather_by_shape'][6, 1]}")
+        require(all(s[4] for s in steps + plain + ref),
+                f"phase 3m {name}: SCF did not converge")
+        require(all(bool(torch.isfinite(s[1]).all())
+                    and bool(torch.isfinite(s[0])) for s in steps),
+                f"phase 3m {name}: non-finite energy or forces")
+        for k in ("f", "u", "e"):
+            require(ek[k] < bound[k], f"phase 3m {name}: {k} vs f64 "
+                    f"{ek[k]} >= {bound[k]}")
+        require(ekp["f"] < TOL_STEP_F and ekp["u"] < TOL_STEP_F,
+                f"phase 3m {name}: kernel vs plain f32 {ekp}")
+        require(de_kp < TOL_E98, f"phase 3m {name}: energy {de_kp}")
+        for k in ("pair_fwd_by_kind", "pair_bwd_by_kind"):
+            kinds = counts[k]
+            require(kinds["pol"] == want_pol and kinds["uu"] == matvecs
+                    and kinds["perm"] == 0,
+                    f"phase 3m {name}: {k} {kinds}, want pol {want_pol}, "
+                    f"uu {matvecs} (one per PCG matvec)")
+        require(sum(iters["kernel"]) == matvecs and counts["pair_hvp"] == 0,
+                f"phase 3m {name}: {matvecs} matvecs for iterations "
+                f"{iters['kernel']}, K3 {counts['pair_hvp']}")
+        # K4/K6 twice per step on an f32 energy mesh (the matvec's order-4
+        # mesh stays on index_add_), never on a float64 or DS one
+        want_mesh = 2 * n if kern.config.recip_precision is None else 0
+        require(counts["spread_by_shape"][6, 1] == want_mesh
+                and counts["gather_by_shape"][6, 1] == want_mesh,
+                f"phase 3m {name}: K4/K6 (6, 1) launched "
+                f"{counts['spread_by_shape'][6, 1]}/"
+                f"{counts['gather_by_shape'][6, 1]} times, want {want_mesh}")
+        forces[name] = kern
+    base = sum(results["plain-f32"]["iterations"]["kernel"])
+    more = {k: sum(r["iterations"]["kernel"]) for k, r in results.items()
+            if sum(r["iterations"]["kernel"]) > base}
+    log(f"phase 3m: PCG iterations over the {n} steps against plain-f32's "
+        f"{base}: " + (f"more under {more}" if more else "none more"))
+    return forces, results
+
+
+def time_pol_ladder(forces, w, card, out):
+    """Phase 4 of 3m: each row's ms per MD step on the kernels (median of
+    N_REPEATS x N_LADDER_STEPS drift steps, the DS row N_DS_STEPS), and one
+    profiler window of a high_accuracy() step
+    (profile_pol_high_accuracy.txt)."""
+    for name, force in forces.items():
+        steps = (N_DS_STEPS if force.config.recip_precision == "ds"
+                 else N_LADDER_STEPS)
+        ms, times, iters = time_runs(
+            lambda k, force=force: [s[3] for s in pol_steps(force, w, k)[0]],
+            steps)
+        out[name].update(ms=ms, times=times)
+        log(f"phase 4 [{card}]: 3m {name} MD step {ms:.3f} ms/step (median "
+            f"of {N_REPEATS} x {steps}: {[round(t, 3) for t in times]}), "
+            f"warm PCG iterations {sorted(set(iters))}")
+    log_profile("pol_high_accuracy",
+                lambda k: pol_steps(forces["high_accuracy"], w, k), 3)
+    (OUT_DIR / "precision_pol.json").write_text(json.dumps(
+        dict(out, card=card), indent=1, default=str))
+
+
+# ---------------------------------------------------------------------------
+# phase 3n: the precision modes on the 98k system
+# ---------------------------------------------------------------------------
+
+# rows run at 320^3 and 256^3, one energy+force step each, timed over
+# N98_MODE_STEPS
+LARGE_LADDER = ("spread-f64", "high_accuracy", "f64-all")
+N98_MODE_STEPS = 1
+# The DS engine's bytes at its peak, counted before its first run at 98k
+# (ops/dsrecip.py), per mesh point of K1 K2 K3 and per atom. Per point: the
+# k-space weights are its largest stage, on the K1 K2 (K3/2 + 1)
+# half-spectrum, about half a point each: the three DS components of k
+# (24 B), their squares (24 B) and the float32 temporaries of a DS product
+# over them (~5 tensors of 3 components, 60 B) beside the DS spectrum (16
+# B), ~130 B per half-spectrum point = 65 B per point; a butterfly level of
+# the FFTs holds the DS mesh (8 B), the old and new halves (16 B), the
+# twiddled products (4 B) and a product's temporaries (5 B), ~33 B: 80 B
+# per point covers either. Per atom: the stencil stage, one DS product over
+# 10 separable terms x 216 points with 7 float32 tensors live, 60,480 B. At
+# 98,304 atoms on 512^3: 10.7 GB + 5.9 GB = 16.7 GB, the two stages' sum
+# (they do not overlap: an upper bound).
+DS_BYTES_PER_POINT, DS_BYTES_PER_ATOM = 80, 60480
+DS_MAX_STEP_S = 60.0  # a slower step is a size limit too
+DS_SIDES = (N98_SIDE, 28, 25, 20, 16)  # waters per side, largest first
+DS_MEMORY_SHARE = 0.9  # of the card's free bytes that a size may take
+
+
+def large_mode_force(w, spec, method, dtype, grid=None, kappa=None):
+    """The 98k example's force (the 5-smooth grid, i-sorted pairs) under a
+    ladder row; ``grid``/``kappa`` as given."""
+    force = large_force(w, ladder_config(spec, method, fft_friendly_grid=True,
+                                         pairs_i_sorted=True), dtype)
+    if grid is not None:
+        force.kappa = force.kappa if kappa is None else kappa
+        force.K1, force.K2, force.K3 = grid
+        force.refresh_calculators()
+    return force
+
+
+def large_oracle(w, grid, kappa):
+    """The plain float64 step at ``grid``: (energy, forces, the largest of
+    its real, reciprocal and self terms)."""
+    oracle = large_mode_force(w, {}, "torch", torch.float64, grid, kappa)
+    p0 = w["positions"]
+    e, g = large_step(oracle, w, p0, torch.float64)
+    with torch.no_grad():
+        terms = oracle.get_metrics(*large_args(w, p0.double(), torch.float64))
+    return e, g, max(abs(float(terms[t])) for t in ("e_real", "e_recip",
+                                                    "e_self"))
+
+
+def large_mode_check(w, name, spec, tol_f, oracle, grid=None):
+    """One row's first 98k step on the kernels against the plain float64
+    step ``oracle`` (forces relative RMSE, |dE| over the largest term) and
+    against the same mode's plain f32 route, with its launches, peak bytes
+    and wall seconds; the row's bounds as phase 3m's: max(the LADDER bound
+    (TOL_E98 for the energy), 2 x the plain route's own error)."""
+    e64, g64, scale = oracle
+    kern = large_mode_force(w, spec, "auto", torch.float32, grid)
+    grid = (kern.K1, kern.K2, kern.K3)
+    reset_counts()
+    t0 = time.perf_counter()
+    (e_k, g_k), peak = peak_bytes(lambda: large_step(kern, w, w["positions"]))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    e_p, g_p = large_step(large_mode_force(w, spec, "torch", torch.float32,
+                                           grid), w, w["positions"])
+    de, de_p = (abs(float(e) - float(e64)) / scale for e in (e_k, e_p))
+    df, df_p = rel_rmse(g_k, g64), rel_rmse(g_p, g64)
+    de_kp, df_kp = abs(float(e_k) - float(e_p)) / scale, rel_rmse(g_k, g_p)
+    bound_f, bound_e = max(tol_f or 0.0, 2 * df_p), max(TOL_E98, 2 * de_p)
+    out = dict(grid=grid, force_rel_rmse=df, dE_over_term=de,
+               plain32=dict(force_rel_rmse=df_p, dE_over_term=de_p),
+               kernel_vs_plain32=dict(force_rel_rmse=df_kp,
+                                      dE_over_term=de_kp),
+               bound=dict(f=bound_f, e=bound_e), peak_bytes=peak,
+               first_step_s=wall,
+               launches=json_counts(counts, (
+                   "pair_fwd_by_kind", "spread_by_shape",
+                   "spread_tiled_by_shape", "gather_tiled_by_shape")))
+    log(f"phase 3n {name} at {grid} ({w['positions'].shape[0]} atoms): "
+        f"vs plain f64 force rel RMSE {df:.3e} (bound {bound_f:.3e}), |dE| "
+        f"/ max|term| {de:.3e} (bound {bound_e:.3e}); plain f32 route "
+        f"{df_p:.3e}, {de_p:.3e}; kernel vs plain f32 route {df_kp:.3e}, "
+        f"{de_kp:.3e}; first step {wall:.2f} s, peak {peak / 2**30:.3f} GiB; "
+        f"launches K1 {counts['pair_fwd_by_kind']}, K5 (6, 1) "
+        f"{counts['spread_tiled_by_shape'][6, 1]}, K7 (6, 1) "
+        f"{counts['gather_tiled_by_shape'][6, 1]}, K4 (6, 1) "
+        f"{counts['spread_by_shape'][6, 1]}")
+    require(bool(torch.isfinite(g_k).all()) and bool(torch.isfinite(e_k)),
+            f"phase 3n {name} at {grid}: non-finite energy or forces")
+    require(df < bound_f, f"phase 3n {name} at {grid}: forces vs f64 {df}")
+    require(de < bound_e, f"phase 3n {name} at {grid}: energy vs f64 {de}")
+    require(df_kp < TOL_STEP_F98 and de_kp < TOL_E98,
+            f"phase 3n {name} at {grid}: kernel vs plain f32 {df_kp}, "
+            f"{de_kp}")
+    cfg = kern.config
+    # K1/K2 'perm' REAL_PASSES times per step; K5/K7 on an f32 mesh
+    # (beyond the L2 at both grids)
+    want = REAL_PASSES.get(cfg.realspace_precision, 1)
+    tiled = int(cfg.recip_precision is None)
+    require(counts["pair_fwd_by_kind"]["perm"] == want
+            and counts["pair_bwd_by_kind"]["perm"] == want
+            and counts["spread_tiled_by_shape"][6, 1] == tiled
+            and counts["gather_tiled_by_shape"][6, 1] == tiled
+            and counts["spread_by_shape"][6, 1] == 0,
+            f"phase 3n {name} at {grid}: launches {counts}, want K1/K2 "
+            f"{want}, K5/K7 {tiled}")
+    return kern, out
+
+
+def ds_predicted_bytes(n_atoms, grid):
+    return DS_BYTES_PER_POINT * math.prod(grid) + DS_BYTES_PER_ATOM * n_atoms
+
+
+def ds_grid(n_side):
+    """The grid ds_accuracy()'s constructor picks for n_side waters per side
+    (the 5-smooth heuristic grid rounded up to powers of two)."""
+    from admp_tpu_torch.ops.ewald import setup_ewald_parameters_fft
+
+    box = np.eye(3) * n_side * SPACING
+    ks = setup_ewald_parameters_fft(RC, ETHRESH, box)[1:]
+    return tuple(1 << (int(k) - 1).bit_length() for k in ks)
+
+
+def ds_kappa(n_side):
+    from admp_tpu_torch.ops.ewald import setup_ewald_parameters_fft
+
+    return setup_ewald_parameters_fft(RC, ETHRESH,
+                                      np.eye(3) * n_side * SPACING)[0]
+
+
+def large_ds_path(w98, rest_bytes, card):
+    """ds_accuracy() on the 98k system at the grid its constructor picks, or
+    at the largest DS_SIDES size whose predicted bytes (ds_predicted_bytes
+    + ``rest_bytes`` per 98k atoms: the rest of the step, from the
+    high_accuracy() step's peak) fit DS_MEMORY_SHARE of the card's free
+    memory and whose step takes at most DS_MAX_STEP_S; each size passed
+    over is logged as a size limit. Held there as a 3n row."""
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    limits = []
+    for n_side in DS_SIDES:
+        n, grid = 3 * n_side ** 3, ds_grid(n_side)
+        pred = ds_predicted_bytes(n, grid) + rest_bytes * n / 98304
+        if pred > DS_MEMORY_SHARE * free:
+            limits.append(dict(n_side=n_side, atoms=n, grid=grid,
+                               predicted_bytes=pred, free_bytes=free))
+            log(f"phase 3n ds_accuracy at {n} atoms, {grid}: predicted "
+                f"{pred / 2**30:.2f} GiB > {DS_MEMORY_SHARE} x the card's "
+                f"free {free / 2**30:.2f} GiB: a size limit, not run")
+            continue
+        w = w98 if n_side == N98_SIDE else build_large(
+            w98["positions"].device, n_side)
+        oracle = large_oracle(w, grid, ds_kappa(n_side))
+        kern, out = large_mode_check(w, "ds_accuracy", "ds_accuracy", 2e-6,
+                                     oracle)
+        require(out["grid"] == grid, f"the DS grid {out['grid']} != {grid}")
+        out.update(n_side=n_side, atoms=n, predicted_bytes=pred,
+                   limits=limits)
+        log(f"phase 3n [{card}] ds_accuracy at {n} atoms, {grid}: peak "
+            f"{out['peak_bytes'] / 2**30:.3f} GiB against the predicted "
+            f"{pred / 2**30:.3f} GiB (ratio {out['peak_bytes'] / pred:.3f}),"
+            f" first step {out['first_step_s']:.2f} s")
+        if out["first_step_s"] > DS_MAX_STEP_S:
+            limits.append(dict(n_side=n_side, atoms=n, grid=grid,
+                               step_s=out["first_step_s"],
+                               peak_bytes=out["peak_bytes"]))
+            log(f"phase 3n ds_accuracy at {n} atoms: a step of "
+                f"{out['first_step_s']:.1f} s > {DS_MAX_STEP_S} s: a size "
+                "limit")
+            continue
+        return kern, w, out
+    raise SystemExit(f"FAILED: ds_accuracy fits no size: {limits}")
+
+
+def large_ladder_path(w98, card):
+    """Phase 3n: LARGE_LADDER at 320^3 and 256^3 and ds_accuracy() at its
+    grid (large_ds_path), each against the plain float64 step and its own
+    plain f32 route, with peak bytes and ms/step (a profiler window of the
+    high_accuracy() step at 320^3); K5/K7 on the f64-weight stencils
+    against their plain versions. Returns the results."""
+    lad = {row[0]: row[1:] for row in LADDER}
+    rng = np.random.default_rng(11)
+    results = {}
+    for k in (K98, K98_ALT):
+        grid = (k,) * 3
+        m_u0, q = large_stencil(w98, grid, precision="f64")
+        check_tiled(grid, 6, m_u0, q, rng, " on float64 weights")
+        oracle = large_oracle(w98, grid, make_large_force(
+            w98, torch.float32, "auto", "auto", k).kappa)
+        for name in LARGE_LADDER:
+            spec, tol_f, _ = lad[name]
+            kern, out = large_mode_check(w98, name, spec, tol_f, oracle, grid)
+            if k == K98:
+                out["ms"], out["times"], _ = time_runs(
+                    lambda n, f=kern: run_large(f, w98, n), N98_MODE_STEPS)
+                log(f"phase 3n [{card}] {name} at {grid}: "
+                    f"{out['ms']:.3f} ms/step ({[round(t, 3) for t in out['times']]})")
+                if name == "high_accuracy":
+                    log_profile("large_high_accuracy",
+                                lambda n, f=kern: run_large(f, w98, n))
+            results[f"{name}@{k}"] = out
+            del kern
+        del oracle
+    rest = results[f"high_accuracy@{K98}"]["peak_bytes"]
+    kern, w, out = large_ds_path(w98, rest, card)
+    out["ms"], out["times"], _ = time_runs(
+        lambda n: run_large(kern, w, n), N98_MODE_STEPS)
+    log(f"phase 3n [{card}] ds_accuracy at {out['grid']} "
+        f"({out['atoms']} atoms): {out['ms']:.3f} ms/step "
+        f"({[round(t, 3) for t in out['times']]})")
+    results["ds_accuracy"] = out
+    (OUT_DIR / "precision_98k.json").write_text(json.dumps(
+        dict(results, card=card), indent=1, default=str))
+    return results
+
 
 # ---------------------------------------------------------------------------
 # phases 3j, 3k: the sharded layer (admp_tpu_torch/parallel) on the card
@@ -2259,10 +2756,11 @@ def slab_stencil(m_u0, q, grid, n_dev, slab, order=6):
     return m_slab.to(torch.int32).contiguous(), q[keep].contiguous(), slab_grid
 
 
-def check_slab_kernels(m_u0, q, grid, n_dev, label):
+def check_slab_kernels(m_u0, q, grid, n_dev, label, card=None):
     """K4 and K6 on halo slab 0 of n_dev against spread_torch /
     gather_torch: the spread within TOL_SPREAD of max|mesh|, the gather bit
-    for bit."""
+    for bit; with ``card``, also each kernel's time beside its plain
+    version, its one PyTorch call and its bound (spread_calls), logged."""
     from admp_tpu_torch.ops.cuda import spread as S
 
     m_s, q_s, sgrid = slab_stencil(m_u0, q, grid, n_dev, 0)
@@ -2280,6 +2778,16 @@ def check_slab_kernels(m_u0, q, grid, n_dev, label):
         f"{bool(torch.equal(out_k, out_p))}")
     require(err <= TOL_SPREAD * scale, f"K4 on the {label} slab {err / scale}")
     require(torch.equal(out_k, out_p), f"K6 on the {label} slab")
+    if card is None:
+        return
+    for name, (kernel, plain, library, (b_ms, b_by)) in spread_calls(
+            m_s, q_s, g, 6).items():
+        (ms, dev_ms), (p_ms, p_dev), (l_ms, l_dev) = (
+            cuda_time_ms(fn) for fn in (kernel, plain, library))
+        log(f"phase 4 [{card}]: {label} halo slab {sgrid} {name} (K4/K6 at "
+            f"(6, 1)): kernel {ms:.4f} ms/call ({dev_ms:.4f} ms device), "
+            f"plain {p_ms:.4f} ({p_dev:.4f}), one PyTorch call {l_ms:.4f} "
+            f"({l_dev:.4f}), bound {b_ms:.4f} ms ({b_by})")
 
 
 def sharded_inputs(w, n_dev):
@@ -2300,9 +2808,9 @@ def sharded_inputs(w, n_dev):
                 ff_pairs=pad_pairs(w["ff_pairs"], n, n_dev))
 
 
-def sharded_fns(w, n_dev, group=None):
+def sharded_fns(w, n_dev, group=None, **keywords):
     """(pol energy_and_aux, full force field) of the 3000-atom box on
-    ``group``."""
+    ``group``, under the EngineConfig ``keywords``."""
     from admp_tpu_torch import EngineConfig, SCFConfig
     from admp_tpu_torch.parallel import (
         make_sharded_ff_energy,
@@ -2310,7 +2818,7 @@ def sharded_fns(w, n_dev, group=None):
     )
 
     si = sharded_inputs(w, n_dev)
-    cfg = EngineConfig(halo_cap_factor=float(n_dev))
+    cfg = EngineConfig(halo_cap_factor=float(n_dev), **keywords)
     pol = make_sharded_pol_energy(group, grid_shape=w["grid"],
                                   kappa=si["kappa"], lmax=LMAX,
                                   scf_config=SCFConfig(), config=cfg,
@@ -2346,30 +2854,33 @@ def sharded_ff_step(ff, w, si, positions):
     return e.detach(), g
 
 
-def sharded_box_runs(w, n_dev, group=None):
+def sharded_box_runs(w, n_dev, group=None, **keywords):
     """Phase 3j (n_dev = 1, NCCL) and each rank of 3k: the sharded
-    polarizable step and full force field on the 3000-atom box, the first
-    step's results with its launch counts and comm tally, one warm step's
-    tally, and ms/step over drift steps (forces consumed, warm-started
-    dipoles). Returns numpy results."""
+    polarizable step and full force field on the 3000-atom box under the
+    EngineConfig ``keywords``, the first step's results with its launch
+    counts, comm tally and peak bytes, one warm step's tally, and ms/step
+    over drift steps (forces consumed, warm-started dipoles). Returns numpy
+    results."""
     from admp_tpu_torch.utils.comm import CommTally
 
-    pol, ff, si = sharded_fns(w, n_dev, group)
+    pol, ff, si = sharded_fns(w, n_dev, group, **keywords)
     out = {}
     u0 = torch.zeros_like(w["positions"])
     reset_counts()
     with CommTally().recording() as tally:
-        e, g, u, conv, n_iter = sharded_pol_step(pol, w, si, w["positions"],
-                                                 u0)
+        (e, g, u, conv, n_iter), peak = peak_bytes(
+            lambda: sharded_pol_step(pol, w, si, w["positions"], u0))
     out["pol"] = dict(energy=float(e), forces=g.cpu().numpy(),
                       u=u.cpu().numpy(), converged=bool(conv),
                       n_iter=int(n_iter), launches=read_counts(),
-                      tally=tally.report())
+                      tally=tally.report(), peak_bytes=peak)
     reset_counts()
     with CommTally().recording() as tally:
-        e_ff, g_ff = sharded_ff_step(ff, w, si, w["positions"])
+        (e_ff, g_ff), peak = peak_bytes(
+            lambda: sharded_ff_step(ff, w, si, w["positions"]))
     out["ff"] = dict(energy=float(e_ff), forces=g_ff.cpu().numpy(),
-                     launches=read_counts(), tally=tally.report())
+                     launches=read_counts(), tally=tally.report(),
+                     peak_bytes=peak)
 
     state = {"u": u}
 
@@ -2418,6 +2929,91 @@ def sharded_batch(w, data_group, model_group, n_dev):
     return e.detach().cpu().numpy(), g.cpu().numpy()
 
 
+# the precision keywords of the sharded factories, on the 3000-atom box at P
+# = 1 over NCCL and P = 2 over gloo, against the single-device kernels under
+# the same keyword (compensated sums are the default)
+SHARD_KEYWORDS = {"spread_f64": dict(spread_precision="f64"),
+                  "compensated": dict(compensated_sums=True)}
+
+
+def sharded_keyword_runs(w, n_dev, group=None):
+    """sharded_box_runs under each of SHARD_KEYWORDS on ``group``."""
+    return {name: sharded_box_runs(w, n_dev, group, **kw)[0]
+            for name, kw in SHARD_KEYWORDS.items()}
+
+
+def sharded_keyword_rank(rank, world_size):
+    """A gloo rank of the keyword runs on the card it shares."""
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    return sharded_keyword_runs(build_workload(dev), world_size)
+
+
+def sharded_keywords(w, f64, card, ranks2=None):
+    """The precision keywords of 3j: sharded_keyword_runs at P = 1 over NCCL
+    (its own world-size-1 group) and at P = 2 over gloo (the ranks of 3k,
+    ``ranks2``, or two of their own), each rank against the single-device
+    kernels under the same keyword (energy TOL_STEP_E, forces TOL_STEP_F)
+    and plain f64 (forces TOL_F64), every kernel launched (K3 in the exact
+    adjoint), the same PCG iterations on every rank; ms/step and peak bytes;
+    K4/K6 on the 3000-atom halo slabs of P = 1 and 2 on stencils of float64
+    weights against their plain versions."""
+    import torch.distributed as dist
+
+    from admp_tpu_torch.ops.reciprocal import (
+        atom_spread_alpha,
+        spread_points_separable,
+    )
+    from admp_tpu_torch.parallel.launch import launch
+
+    dev = w["positions"].device
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        p1 = sharded_keyword_runs(w, 1)
+    finally:
+        dist.destroy_process_group()
+    if ranks2 is None:
+        ranks2 = launch(sharded_keyword_rank, 2, backend="gloo")
+    for name, kw in SHARD_KEYWORDS.items():
+        ref = single_device_refs(w, "auto", torch.float32, **kw)
+        for kind, hvp in (("pol", True), ("ff", False)):
+            runs = [("P=1 (NCCL)", p1[name][kind])] + [
+                (f"P=2 rank {i}", r[name][kind]) for i, r in enumerate(ranks2)]
+            for label, got in runs:
+                msg = f"phase 3j {kind} {name} {label}"
+                if kind == "pol":
+                    msg += (f" ({got['n_iter']} PCG iterations, single device"
+                            f" {ref['pol']['n']})")
+                    require(got["converged"], f"{msg}: SCF did not converge")
+                check_against(msg + ", vs single-device kernels under the "
+                              "same keyword", got, ref[kind], TOL_STEP_F,
+                              f64[kind])
+                require_launched(msg, got["launches"], hvp=hvp)
+            if kind == "pol":
+                iters = {got["n_iter"] for _, got in runs}
+                require(len(iters) == 1,
+                        f"phase 3j pol {name}: iterations {iters}")
+            log(f"phase 3j [{card}] {kind} {name}: ms/step "
+                + ", ".join(f"{label} {got['ms']:.3f}" for label, got in runs)
+                + "; peak MiB " + ", ".join(
+                    f"{label} {got['peak_bytes'] / 2**20:.1f}"
+                    for label, got in runs))
+    n = w["positions"].shape[0]
+    m_u0, u0, alpha = atom_spread_alpha(w["positions"], w["box"],
+                                        w["q_local"], w["grid"], LMAX, 6,
+                                        "f64")
+    q = spread_points_separable(u0, alpha, LMAX).float().reshape(n, 1, 216)
+    for n_dev in (1, 2):
+        check_slab_kernels(m_u0, q, w["grid"], n_dev,
+                           f"3000-atom P={n_dev} (float64 weights)")
+    keep = ("energy", "converged", "n_iter", "ms", "times", "peak_bytes")
+    (OUT_DIR / "sharded_keywords.json").write_text(json.dumps(dict(
+        card=card, p1={name: {kind: {k: v for k, v in r.items() if k in keep}
+                              for kind, r in runs.items()}
+                       for name, runs in p1.items()}), indent=1))
+
+
 def sharded_rank(rank, world_size):
     """The gloo ranks of phase 3k on the card they share: P = 2 on ranks 0
     and 1 (the others wait), then P = 4 with the 2 x 2 batch energy and
@@ -2434,6 +3030,7 @@ def sharded_rank(rank, world_size):
     pair = dist.new_group([0, 1])
     if rank < 2:
         out[2], _ = sharded_box_runs(w, 2, pair)
+        out["keywords"] = sharded_keyword_runs(w, 2, pair)
     dist.barrier()
     out[world_size], _ = sharded_box_runs(w, world_size)
     out["batch"] = sharded_batch(w, *mesh_groups(*SHARD_DATA_MODEL),
@@ -2444,7 +3041,7 @@ def sharded_rank(rank, world_size):
     return out
 
 
-def sharded_large(w98):
+def sharded_large(w98, card):
     """Phase 3j (a): examples/fluctuating_multipoles.py --n-side 32 --sharded
     at world size 1: the example's grid (setup_ewald_parameters(4.0, 1e-4),
     K1 and K2 rounded up to P), cell-list pairs padded to P, sparse
@@ -2533,7 +3130,7 @@ def sharded_large(w98):
     q_local = fluctuating_q_local(p0, w98["q_cart"])
     m_u0, u0, alpha = atom_spread_alpha(p0, w98["box"], q_local, grid, LMAX)
     q_pts = spread_points_separable(u0, alpha, LMAX).reshape(n, 1, 216)
-    check_slab_kernels(m_u0, q_pts, grid, 1, "98k P=1")
+    check_slab_kernels(m_u0, q_pts, grid, 1, "98k P=1", card)
     check_slab_kernels(m_u0, q_pts, grid, 4, "98k P=4")
     del forces["plain64"], forces["plain32"]
 
@@ -2555,9 +3152,10 @@ def format_tally(title, report):
                          f"{report['while_iters']} solver iterations")
 
 
-def single_pol_force(w, dtype, method):
+def single_pol_force(w, dtype, method, **keywords):
     """The single-device counterpart of the sharded polarizable call: the
-    MD box's model with SCFConfig(), no cached influence, K3 = 128."""
+    MD box's model with SCFConfig(), no cached influence, its grid (K3 =
+    128), and the EngineConfig ``keywords``."""
     from admp_tpu_torch import ADMPPmeForce, EngineConfig, SCFConfig
 
     s = w["sys"]
@@ -2565,11 +3163,34 @@ def single_pol_force(w, dtype, method):
         s["box"], s["axis_types"], s["axis_indices"], s["covalent_map"], RC,
         ETHRESH, lmax=LMAX, lpol=True,
         config=EngineConfig(scf=SCFConfig(), pair_kernel=method,
-                            spread_method=method),
+                            spread_method=method, **keywords),
         device=w["positions"].device, dtype=dtype)
-    force.K3 = K3
+    force.K1, force.K2, force.K3 = w["grid"]
     force.refresh_calculators()
     return force
+
+
+def single_device_refs(w, method, dtype, **keywords):
+    """The single-device counterparts of 3j's two 3000-atom calls under the
+    EngineConfig ``keywords``: the polarizable step (energy, forces,
+    dipoles, iterations) and the full force field in the sharded factory's
+    sign, with the forces and the full force field's total for timing."""
+    force = single_pol_force(w, dtype, method, **keywords)
+    e, g = force.get_forces(*pol_args(w, w["positions"], dtype))
+    ff_total, disp = make_ff(w, w["positions"].device, dtype, method,
+                             **keywords)
+    box, sc = w["box"].to(dtype), w["scales"].to(dtype)
+
+    def ff_signed(positions, c_list):
+        # the sharded factory's sign (the front end's e_sr - e_lr): PME +
+        # TT - dispersion PME, where make_ff adds the dispersion
+        return ff_total(positions, c_list) - 2.0 * disp.get_energy(
+            positions, box, w["ff_pairs"], c_list, sc)
+
+    e_ff, g_ff = ff_step(ff_signed, w["positions"].to(dtype),
+                         w["c_list"].to(dtype))
+    return dict(pol=dict(e=float(e), g=g, u=force.U_ind, n=force.n_cycle),
+                ff=dict(e=float(e_ff), g=g_ff), force=force, total=ff_total)
 
 
 def log_profile(name, run, n_steps=1):
@@ -2616,8 +3237,9 @@ def require_launched(label, launches, hvp=False):
 
 
 def sharded_path(w, w98, record, card):
-    """Phases 3j and 3k, with their times and profiles (the NCCL group of
-    3j lives only here)."""
+    """Phases 3j and 3k, with their times and profiles, and 3j's precision
+    keywords (sharded_keywords; each NCCL group lives only in its
+    function)."""
     import torch.distributed as dist
 
     from admp_tpu_torch.parallel.launch import launch, mesh_groups
@@ -2625,26 +3247,10 @@ def sharded_path(w, w98, record, card):
     dev = w["positions"].device
     t0 = time.perf_counter()
     # the single-device paths on the same inputs: kernels and plain f64
-    single = {}
-    for name, method, dtype in (("kernel", "auto", torch.float32),
-                                ("plain64", "torch", torch.float64)):
-        force = single_pol_force(w, dtype, method)
-        e, g = force.get_forces(*pol_args(w, w["positions"], dtype))
-        ff_total, disp = make_ff(w, dev, dtype, method)
-        box, sc = w["box"].to(dtype), w["scales"].to(dtype)
-
-        def ff_signed(positions, c_list, total=ff_total, disp=disp, box=box,
-                      sc=sc):
-            # the sharded factory's sign (the front end's e_sr - e_lr):
-            # PME + TT - dispersion PME, where make_ff adds the dispersion
-            return total(positions, c_list) - 2.0 * disp.get_energy(
-                positions, box, w["ff_pairs"], c_list, sc)
-
-        e_ff, g_ff = ff_step(ff_signed, w["positions"].to(dtype),
-                             w["c_list"].to(dtype))
-        single[name] = dict(
-            pol=dict(e=float(e), g=g, u=force.U_ind, n=force.n_cycle),
-            ff=dict(e=float(e_ff), g=g_ff), force=force, total=ff_total)
+    single = {name: single_device_refs(w, method, dtype)
+              for name, method, dtype in (("kernel", "auto", torch.float32),
+                                          ("plain64", "torch",
+                                           torch.float64))}
     k, f64 = single["kernel"], single["plain64"]
 
     log(f"phase 3j: single-device references, {time.perf_counter() - t0:.1f}"
@@ -2653,7 +3259,7 @@ def sharded_path(w, w98, record, card):
                             world_size=1, device_id=dev)
     try:
         t0 = time.perf_counter()
-        large = sharded_large(w98)
+        large = sharded_large(w98, card)
         log(f"phase 3j: 98k, {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         p1, (run_pol_s, run_ff_s) = sharded_box_runs(w, 1)
@@ -2751,6 +3357,9 @@ def sharded_path(w, w98, record, card):
     log(f"phase 3k dryrun_multichip(4, device='cuda') on rank 0: "
         f"{ranks[0]['dryrun']}")
     log("phase 3k: sharded layer on 2 and 4 gloo ranks ok")
+    sharded_keywords(w, f64, card, [r["keywords"] for r in ranks[:2]])
+    log("phase 3j: the precision keywords at P = 1 (NCCL) and P = 2 (gloo) "
+        "ok")
     for name in ("pair_fwd", "pair_bwd", "pair_hvp", "spread", "gather"):
         record[name]["sharded_launches"] = {
             "98k_P1": large["launches"][name],
@@ -3708,7 +4317,8 @@ def main():
     # (another commit's checkout, to compare in one run);
     # --kernels DIR [DIR ...]: only the device times of K2-K7,
     # this tree's beside each DIR's in one process
-    # --sharded: only phases 1, 3j and 3k; --scripts: only phases 1 and 3l
+    # --sharded: only phases 1, 3j and 3k; --scripts: only phases 1 and 3l;
+    # --precision: only phases 1, 3m, 3n and the keywords of 3j
     mode = sys.argv[1] if len(sys.argv) > 1 else None
     other = sys.argv[2] if mode in ("--launchers", "--adjoint") else None
     sys.path.insert(0, other or str(ROOT))
@@ -3776,6 +4386,19 @@ def main():
         scripts_path(record, card)
         log("phase 3l: the user's scripts ok")
         return 0
+    if mode == "--precision":
+        parts = sys.argv[2:] or ["3m", "3n", "keywords"]
+        if "3m" in parts:
+            pol_forces, pol_prec = pol_ladder_path(w)
+            time_pol_ladder(pol_forces, w, card, pol_prec)
+            del pol_forces
+        if "3n" in parts:
+            large_ladder_path(build_large(dev), card)
+        if "keywords" in parts:
+            sharded_keywords(w, single_device_refs(w, "torch",
+                                                   torch.float64), card)
+        log(f"{parts} ok")
+        return 0
     log(f"workload: {w['positions'].shape[0]} atoms, "
         f"{w['pairs'].shape[0]} pair slots (dense), "
         f"{w['ff_pairs'].shape[0]} (cell list), built in "
@@ -3805,6 +4428,10 @@ def main():
     log("phase 3h: MD ok")
     prec_forces, prec_pol, prec = precision_path(w)
     log("phase 3i: precision modes ok")
+    pol_forces, pol_prec = pol_ladder_path(w)
+    log("phase 3m: precision modes on the polarizable MD step ok")
+    large_ladder_path(w98, card)
+    log("phase 3n: precision modes on the 98k system ok")
     sharded_path(w, w98, record, card)
     scripts_path(record, card)
     log("phase 3l: the user's scripts ok")
@@ -3865,6 +4492,7 @@ def main():
         f"({[round(t, 3) for t in times_npt_plain]})")
     time_front_end(front, w, card)
     time_precision(prec_forces, prec_pol, w, card, prec)
+    time_pol_ladder(pol_forces, w, card, pol_prec)
     for name, run in (
             ("md", lambda n: run_steps(force, w, w["positions"], n)),
             ("adjoint", lambda n: run_steps(adj, w, w["positions"], n)),

@@ -23,10 +23,11 @@ not, with atoms outside the box, and K7 where its warps cross from one bin
 into the next beside empty bins; K5 on a crowded tile that holds more atoms
 than its stage (chunks, in a fixed order); the plain versions under
 gradcheck at float64; second-order pulls on the kernels; and 'auto' on a
-256^3 mesh launching K5/K7 and not K4/K6. K6 bit for bit and K4 within
-1e-5 max|mesh| on axes shorter than the stencil and on rows that wrap at K3,
-both on a side stream, and the launchers' refusal of bases on another
-device; K4 at N = 0 (zeros) and through its C entry into a mesh filled with
+256^3 mesh launching K5/K7 and not K4/K6, also on stencils of float64
+weights rounded to float32 (spread_precision='f64'). K6 bit for bit and K4
+within 1e-5 max|mesh| on axes shorter than the stencil and on rows that
+wrap at K3, both on a side stream, and the launchers' refusal of bases on
+another device; K4 at N = 0 (zeros) and through its C entry into a mesh filled with
 NaN (the entry zeroes its mesh). K3 on all seven (kind, lmax). K2 and K3
 also on tables crafted onto each branch of the pair energy (degenerate
 pairs, the frame guard, masked pairs, zero-pol sites, the pscale sigmoid,
@@ -745,6 +746,44 @@ def test_auto_takes_the_tiled_pair_on_a_large_mesh(dev):
         launched = tuple(b - a for a, b in zip(counts, now))
         assert launched == ((1, 1, 0, 0) if method == "auto" else (0,) * 4)
         out[method] = (mesh, g)
+    assert _rel(out["auto"][0], out["torch"][0]) < 1e-5
+    assert _rel(out["auto"][1], out["torch"][1]) < 1e-4
+
+
+def test_tiled_pair_on_float64_weights_beyond_the_l2(dev):
+    """spread_precision='f64' on a 256^3 order-6 mesh (67 MB, beyond the
+    H100's 50 MB L2): stencils computed in float64 and rounded to float32,
+    K5 within 1e-5 max|mesh| of spread_tiled_torch, K7 bit for bit against
+    gather_tiled_torch; and spread_to_mesh(precision='f64') under 'auto'
+    launching K5 and, in the backward, K7, its float32 mesh and position
+    gradient within 1e-5 and 1e-4 of the plain route's."""
+    _, pos, box, q, _, _ = _system(dev, n_side=10)
+    grid = (256, 256, 256)
+    m_u0, u0, alpha = atom_spread_alpha(pos, box, q, grid, 2, 6, "f64")
+    assert u0.dtype == alpha.dtype == torch.float64
+    pts = spread_points_separable(u0, alpha, 2).to(torch.float32).reshape(
+        -1, 1, 216).contiguous()
+    bins = S.tile_bins(m_u0, grid, S.TILE, 6)
+    mesh_k = S.launch_spread_tiled(bins, pts, grid, 6)
+    mesh_t = S.spread_tiled_torch(bins, pts, grid, 6)
+    assert float((mesh_k - mesh_t).abs().max()) <= 1e-5 * float(
+        mesh_t.abs().max())
+    g = torch.randn((1, *grid), device=dev,
+                    generator=torch.Generator(dev).manual_seed(7))
+    assert torch.equal(S.launch_gather_tiled(bins, g, grid, 6),
+                       S.gather_tiled_torch(bins, g, grid, 6))
+    out = {}
+    for method in ("auto", "torch"):
+        p = pos.detach().requires_grad_(True)
+        before = (S.launch_spread_tiled.launches,
+                  S.launch_gather_tiled.launches)
+        mesh = spread_to_mesh(p, box, q, grid, 2, method, precision="f64")
+        (grad,) = torch.autograd.grad((mesh * mesh).sum(), p)
+        launched = (S.launch_spread_tiled.launches - before[0],
+                    S.launch_gather_tiled.launches - before[1])
+        assert launched == ((1, 1) if method == "auto" else (0, 0))
+        assert mesh.dtype == torch.float32
+        out[method] = (mesh, grad)
     assert _rel(out["auto"][0], out["torch"][0]) < 1e-5
     assert _rel(out["auto"][1], out["torch"][1]) < 1e-4
 

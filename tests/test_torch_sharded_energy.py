@@ -13,7 +13,43 @@ taken from results admp_tpu already holds equal: its sharded PME with
 SparseExclusions equals its dense one (tests/test_sharding.py asserts it
 to 1e-12), and its ``make_sharded_ff_energy`` is, by its definition, its
 sharded PME + Tang-Toennies - dispersion PME on the same pairs; the port's
-full force field is held against that sum."""
+full force field is held against that sum.
+
+The EngineConfig keywords ``spread_precision='f64'`` and
+``compensated_sums=True`` on make_sharded_pme_energy and
+make_sharded_ff_energy (make_sharded_pol_energy: test_torch_sharded_pol.py)
+act only below float64:
+
+* at float64 neither changes anything in either package: the spread weights
+  are float64 already (the port's factories give bitwise the default
+  result, and admp_tpu's ``atom_spread_alpha(precision='f64')`` bitwise its
+  default weights), and compensated sums are the default of both
+  EngineConfigs, so the port under each keyword is held against admp_tpu's
+  default results above, at their bounds;
+* at float32 (inputs rounded to float32 in both packages, the float64
+  reference at the same rounded inputs) admp_tpu's sharded PME is compiled
+  once, under ``spread_precision='f64'``, which keeps compensated sums (the
+  default): both keywords on. The float64 weights move the PME forces from
+  the f32 floor (2.6e-4 from float64) to 1.9e-6; the port's sit within
+  2.0e-6 of admp_tpu's (bound 5e-6), the full force field's within 3.9e-5
+  (bound 1e-4: its dispersion mesh keeps float32 weights, the keyword does
+  not reach the dispersion factory in either package). Energies: each
+  package's error against float64 within max(2x admp_tpu's, 1e-6 of the
+  largest PME term, 5.3e4 kJ/mol). Compensated sums alone (the float32
+  default) are held against the port's single-device force and float64
+  below (admp_tpu's compile of that configuration, ~10 s, is left out of
+  the suite's budget). ``compensated_sums`` changes the real-space pair sum
+  of the PME term only (not the dispersion, Tang-Toennies, the sharded
+  Parseval sum or the self energy, in either package), so the energy and
+  not the forces: the port's forces with and without it are bitwise equal,
+  its PME energy with it 7.9e-4 kJ/mol from float64 and 4.0e-3 without;
+* under every keyword the sharded factories agree with the port's
+  single-device force of the same config: energy within 1e-6 of the largest
+  term, forces within 2e-6 under the float64 weights (measured 1.9e-7) and
+  5e-5 at the f32 floor (2.0e-5: two f32 summation orders); and with
+  float64 at the same inputs: forces 1e-5 under the float64 weights
+  (1.9e-6), 1e-3 at the f32 floor (2.6e-4), energy within 1e-6 of the
+  largest term."""
 
 import jax
 import jax.numpy as jnp
@@ -30,10 +66,12 @@ from admp_tpu.parallel import (
     make_sharded_pairwise_energy,
     make_sharded_pme_energy,
 )
+from admp_tpu.ops.reciprocal import atom_spread_alpha
 from admp_tpu.settings import EngineConfig
+from admp_tpu_torch import EngineConfig as TEngine
 from admp_tpu_torch.parallel.launch import start
 from tests import torch_sharded_cases as cases
-from tests.torch_port_cases import dense_pairs
+from tests.torch_port_cases import dense_pairs, rel_err
 from tests.watergen import water_arrays
 
 N_DEV = 4
@@ -41,6 +79,17 @@ GRID = (16, 16, 16)
 KAPPA, DISP_KAPPA = 0.62, 0.7
 M_SCALES = np.array([0.0, 0.0, 0.0, 1.0, 1.0])
 RC = 5.0
+# the largest PME term of the box at float64 (the self energy), kJ/mol: a
+# float32 energy's error is set over it
+E_SCALE = 5.3e4
+# float32, port vs admp_tpu under spread_precision='f64' (compensated sums
+# on), forces (relative RMSE), by factory (module docstring)
+TOL_KW_VS_JAX = {"pme": 5e-6, "ff": 1e-4}
+# float32, sharded vs the single-device force of the same config, and vs
+# float64 at the same inputs (forces and dipoles, relative RMSE)
+TOL_KW_SINGLE = {"spread_f64": 2e-6, "compensated": 5e-5,
+                 "uncompensated": 5e-5}
+TOL_KW_F64 = {"spread_f64": 1e-5, "compensated": 1e-3, "uncompensated": 1e-3}
 
 
 def water_inputs():
@@ -112,6 +161,32 @@ def ref(port):
 
     (_, e_b), g_q = jax.jit(jax.value_and_grad(weighted, has_aux=True))(q)
     out["batch"] = (e_b, g_q)
+
+    # float32, inputs rounded to float32: the PME under each keyword, and the
+    # rest of the full force field (Tang-Toennies - dispersion PME), which
+    # neither keyword reaches
+    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    pos32, box32, q32, m32 = f32(pos), f32(box), f32(q), f32(m)
+    out["pme32_spread_f64"] = jax.jit(jax.value_and_grad(
+        make_sharded_pme_energy(
+            mesh, "model", config=EngineConfig(spread_precision="f64"),
+            covalent_map=s["covalent_map"], **common)))(
+                pos32, box32, pairs, q32, m32)
+    disp = make_sharded_disp_energy(mesh, "model", grid_shape=GRID,
+                                    kappa=DISP_KAPPA, pmax=10,
+                                    covalent_map=s["covalent_map"])
+    tt = make_sharded_pairwise_energy(mesh, "model", tt_damping_qq_c6_kernel,
+                                      s["covalent_map"])
+    c32 = f32(s["c_list"])
+
+    def rest(p):
+        e_tt = tt(p, box32, pairs, m32, f32(s["tt_a"]), f32(s["tt_b"]),
+                  f32(s["tt_q"]), c32[:, 0])
+        return e_tt - disp(p, box32, pairs, c32, m32)
+
+    out["rest32"] = jax.jit(jax.value_and_grad(rest))(pos32)
+    out["ff32_spread_f64"] = tuple(a + b for a, b in zip(
+        out["pme32_spread_f64"], out["rest32"]))
     return {k: tuple(None if v is None else np.asarray(v) for v in val)
             for k, val in out.items()}
 
@@ -151,3 +226,67 @@ def test_batch_energy_on_a_data_model_split_matches_admp_tpu(ref, ranks):
         assert e.shape == (2,)
         np.testing.assert_allclose(e, e_ref, rtol=1e-9)
         np.testing.assert_allclose(g, g_ref, atol=1e-9)
+
+
+def test_keywords_change_nothing_at_float64():
+    """The premise of holding the float64 keyword runs against admp_tpu's
+    default results: compensated sums are both packages' default, and the
+    float64 spread weights of a float64 input are the default ones."""
+    assert TEngine(compensated_sums=True) == TEngine()
+    assert EngineConfig(compensated_sums=True) == EngineConfig()
+    inp = water_inputs()
+    s = inp["sys"]
+    args = (jnp.asarray(s["positions"]), jnp.asarray(s["box"]),
+            jnp.asarray(inp["q_local"]), GRID, 2)
+    for a, b in zip(atom_spread_alpha(*args),
+                    atom_spread_alpha(*args, precision="f64")):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("factory", ["pme", "ff"])
+@pytest.mark.parametrize("name", sorted(cases.KEYWORDS))
+def test_precision_keywords_at_float64_match_admp_tpu(ref, ranks, name,
+                                                      factory):
+    e_ref, g_ref = ref[factory]
+    for r in ranks:
+        e, g = r[f"{factory}64_{name}"]
+        np.testing.assert_allclose(e, float(e_ref), rtol=1e-9)
+        np.testing.assert_allclose(g, g_ref, atol=1e-9)
+        # the port's own default result, bit for bit
+        e0, g0 = r[factory]
+        assert e == e0 and np.array_equal(g, g0)
+
+
+@pytest.mark.parametrize("factory", ["pme", "ff"])
+def test_precision_keywords_at_float32_match_admp_tpu(ref, ranks, factory):
+    e_j, g_j = (np.asarray(x, np.float64)
+                for x in ref[f"{factory}32_spread_f64"])
+    for r in ranks:
+        e_64, g_64 = r[f"{factory}64r_default"]
+        e, g = r[f"{factory}32_spread_f64"]
+        assert rel_err(g, g_j) < TOL_KW_VS_JAX[factory], rel_err(g, g_j)
+        err, err_j = rel_err(g, g_64), rel_err(g_j, g_64)
+        assert err <= 1.5 * err_j + 1e-8, (err, err_j)
+        de, de_j = abs(e - e_64), abs(float(e_j) - e_64)
+        assert de <= max(2 * de_j, 1e-6 * E_SCALE), (de, de_j)
+
+
+@pytest.mark.parametrize("name", sorted(cases.KEYWORDS32))
+def test_precision_keywords_match_single_device_and_float64(ranks, name):
+    for r in ranks:
+        e, g = r[f"pme32_{name}"]
+        e_s, g_s = r[f"single32_{name}"]
+        e_64, g_64 = r["pme64r_default"]
+        assert abs(e - e_s) <= 1e-6 * E_SCALE, (e, e_s)
+        assert rel_err(g, g_s) < TOL_KW_SINGLE[name], rel_err(g, g_s)
+        assert abs(e - e_64) <= 1e-6 * E_SCALE, (e, e_64)
+        assert rel_err(g, g_64) < TOL_KW_F64[name], rel_err(g, g_64)
+
+
+def test_compensated_sums_change_the_energy_not_the_forces(ranks):
+    for r in ranks:
+        for factory in ("pme", "ff"):
+            e_c, g_c = r[f"{factory}32_compensated"]
+            e_u, g_u = r[f"{factory}32_uncompensated"]
+            assert e_c != e_u, factory
+            assert np.array_equal(g_c, g_u), factory

@@ -9,7 +9,30 @@ Tang-Toennies - dispersion PME (its definition); admp_tpu's bounds
 (tests/test_sharding.py): energies rtol 1e-9, forces and dipoles atol 1e-8.
 The port's sharded Feynman-Hellmann and Jacobi solves against its own
 single-device ones, and the cheap matvec against the field difference of
-the full sharded energy (rtol 1e-8, as admp_tpu's test)."""
+the full sharded energy (rtol 1e-8, as admp_tpu's test).
+
+The EngineConfig keywords ``spread_precision='f64'`` and
+``compensated_sums=True`` on ``make_sharded_pol_energy`` (the keywords'
+reach in both packages: tests/test_torch_sharded_energy.py). The spread
+keyword reaches both of the solve's operators, the field's energy mesh and
+the matvec's dipole mesh; compensated sums only the real-space pair sum of
+the energy, and neither the matvec's u-quadratic energy nor the field (the
+sum's backward is the plain broadcast), so with and without it the port
+takes the same iterations to the same dipoles and forces, bit for bit, and
+only the energy moves.
+
+* At float64 neither keyword changes anything: each run is held against
+  admp_tpu's default result above at its bounds, and equals the port's own
+  default run bit for bit.
+* At float32 admp_tpu's polarizable sharded factory is not compiled under
+  each keyword: one such compile takes about a minute on a CPU, beyond
+  the suite's budget. The port's float32 runs are held against its own
+  single-device polarizable force of the same config (the same 6 PCG
+  iterations; energy within 1e-6 of the largest PME term, forces and
+  dipoles as the fixed factories: 2e-6 with float64 spread weights,
+  measured 2.8e-7, 5e-5 at the f32 floor, measured 1.8e-5) and against
+  float64 at the same rounded inputs (forces 1e-5 with float64 spread
+  weights, measured 2.0e-6; 1e-3 at the f32 floor, 2.2e-4)."""
 
 import jax
 import jax.numpy as jnp
@@ -26,8 +49,10 @@ from admp_tpu.parallel import (
 from admp_tpu.settings import SCFConfig
 from admp_tpu_torch.parallel.launch import start
 from tests import torch_sharded_cases as cases
-from tests.test_torch_sharded_energy import DISP_KAPPA, GRID, KAPPA, N_DEV
+from tests.test_torch_sharded_energy import DISP_KAPPA, E_SCALE, GRID, KAPPA
+from tests.test_torch_sharded_energy import N_DEV, TOL_KW_F64, TOL_KW_SINGLE
 from tests.test_torch_sharded_energy import water_inputs
+from tests.torch_port_cases import rel_err
 
 
 @pytest.fixture(scope="module")
@@ -120,3 +145,38 @@ def test_cheap_matvec_equals_the_field_difference(ranks):
     for r in ranks:
         np.testing.assert_allclose(r["matvec"], r["field_diff"], rtol=1e-8,
                                    atol=1e-10)
+
+
+@pytest.mark.parametrize("name", sorted(cases.KEYWORDS))
+def test_precision_keywords_at_float64_match_admp_tpu(ref, ranks, name):
+    want = ref["pol"]
+    for r in ranks:
+        got = r[f"pol64_{name}"]
+        assert got["converged"] and got["n_iter"] == want["n_iter"]
+        np.testing.assert_allclose(got["energy"], want["energy"], rtol=1e-9)
+        np.testing.assert_allclose(got["u"], want["u"], atol=1e-8)
+        np.testing.assert_allclose(got["forces"], want["forces"], atol=1e-8)
+        own = r["pol"]
+        assert got["energy"] == own["energy"]
+        assert np.array_equal(got["forces"], own["forces"])
+
+
+@pytest.mark.parametrize("name", sorted(cases.KEYWORDS32))
+def test_precision_keywords_at_float32(ranks, name):
+    for r in ranks:
+        got, single = r[f"pol32_{name}"], r[f"pol_single32_{name}"]
+        ref64 = r["pol64r_default"]
+        assert got["converged"]
+        assert got["n_iter"] == single["n_iter"] == ref64["n_iter"]
+        assert abs(got["energy"] - single["energy"]) <= 1e-6 * E_SCALE
+        for k in ("forces", "u"):
+            assert rel_err(got[k], single[k]) < TOL_KW_SINGLE[name], k
+            assert rel_err(got[k], ref64[k]) < TOL_KW_F64[name], k
+
+
+def test_compensated_sums_move_only_the_energy(ranks):
+    for r in ranks:
+        c, u = r["pol32_compensated"], r["pol32_uncompensated"]
+        assert c["n_iter"] == u["n_iter"] and c["energy"] != u["energy"]
+        assert np.array_equal(c["u"], u["u"])
+        assert np.array_equal(c["forces"], u["forces"])

@@ -27,7 +27,7 @@ def _energy_forces(fn, positions, *args):
     pos = positions.clone().requires_grad_(True)
     e = fn(pos, *args)
     (g,) = torch.autograd.grad(e, pos)
-    return float(e), _np(g)
+    return float(e.detach()), _np(g)
 
 
 # ---------------------------------------------------------------------------
@@ -175,14 +175,21 @@ def fft_spread_cases(rank, world_size, inp):
 # ---------------------------------------------------------------------------
 
 
-def _water(inp):
+def _water(inp, dtype=F64):
+    """The box's tensors in ``dtype``; ``"f32-in-f64"``: their float32
+    values held in float64 (the float64 reference of a float32 run)."""
+    def t(x):
+        if dtype == "f32-in-f64":
+            return _t(x, torch.float32).to(F64)
+        return _t(x, dtype)
+
     s = inp["sys"]
-    return dict(positions=_t(s["positions"]), box=_t(s["box"]),
-                q_local=_t(inp["q_local"]), pairs=torch.as_tensor(
-                    inp["pairs"]).long(), scales=_t(inp["m_scales"]),
-                pol=_t(s["pol"]), tholes=_t(s["tholes"]),
-                c_list=_t(s["c_list"]), tt=[_t(s[k]) for k in
-                                            ("tt_a", "tt_b", "tt_q")])
+    return dict(positions=t(s["positions"]), box=t(s["box"]),
+                q_local=t(inp["q_local"]), pairs=torch.as_tensor(
+                    inp["pairs"]).long(), scales=t(inp["m_scales"]),
+                pol=t(s["pol"]), tholes=t(s["tholes"]),
+                c_list=t(s["c_list"]), tt=[t(s[k]) for k in
+                                           ("tt_a", "tt_b", "tt_q")])
 
 
 def _topo(inp, covalent_map=None):
@@ -256,6 +263,65 @@ def energy_cases(rank, world_size, inp):
                    q, w["scales"])
     (g_q,) = torch.autograd.grad((e_b * _t([1.0, -0.5])).sum(), q)
     out["batch"] = (_np(e_b), _np(g_q))
+    out.update(keyword_cases(inp, grid, kappa, disp_kappa))
+    return out
+
+
+# EngineConfig keywords of the sharded factories (tests/test_torch_sharded_
+# energy.py's docstring): each at float64 and at float32, where they act;
+# compensated sums are the default, and at float32 their contrast runs too
+KEYWORDS = {"spread_f64": dict(spread_precision="f64"),
+            "compensated": dict(compensated_sums=True)}
+KEYWORDS32 = dict(KEYWORDS, uncompensated=dict(compensated_sums=False))
+# (label, dtype of _water, keywords): float64, float32, and the float64
+# reference at the float32 inputs
+KEYWORD_RUNS = (("64", F64, KEYWORDS), ("32", torch.float32, KEYWORDS32),
+                ("64r", "f32-in-f64", {"default": {}}))
+
+
+def _single_force(inp, grid, kappa, config, lpol=False, dtype=F64):
+    """The port's single-device force of the box at ``grid`` and ``kappa``
+    (rc 4, the sharded factories' terms)."""
+    from admp_tpu_torch import ADMPPmeForce
+
+    s = inp["sys"]
+    force = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
+                         s["covalent_map"], 4.0, 1e-3, 2, lpol=lpol,
+                         config=config, device="cpu", dtype=dtype)
+    force.kappa, (force.K1, force.K2, force.K3) = kappa, grid
+    force.refresh_calculators()
+    return force
+
+
+def keyword_cases(inp, grid, kappa, disp_kappa):
+    """make_sharded_pme_energy and make_sharded_ff_energy under each of the
+    KEYWORD_RUNS, and the port's single-device fixed force under the same
+    config: {"pme32_spread_f64": (energy, forces), ...}."""
+    from admp_tpu_torch import EngineConfig
+    from admp_tpu_torch.parallel import (
+        make_sharded_ff_energy,
+        make_sharded_pme_energy,
+    )
+
+    out = {}
+    for label, dtype, keywords in KEYWORD_RUNS:
+        w = _water(inp, dtype)
+        pme_args = (w["box"], w["pairs"], w["q_local"], w["scales"])
+        ff_args = pme_args + (w["c_list"], *w["tt"])
+        for name, kw in keywords.items():
+            cfg = EngineConfig(**kw)
+            pme = make_sharded_pme_energy(grid_shape=grid, kappa=kappa,
+                                          lmax=2, config=cfg, **_topo(inp))
+            ff = make_sharded_ff_energy(
+                grid_shape=grid, kappa=kappa, lmax=2, disp_grid_shape=grid,
+                disp_kappa=disp_kappa, pmax=10, config=cfg, **_topo(inp))
+            key = f"{label}_{name}"
+            out["pme" + key] = _energy_forces(pme, w["positions"], *pme_args)
+            out["ff" + key] = _energy_forces(ff, w["positions"], *ff_args)
+            single = _single_force(inp, grid, kappa, cfg,
+                                   dtype=w["box"].dtype)
+            e, g = single.get_forces(w["positions"], *pme_args)
+            out["single" + key] = (float(e), _np(g))
     return out
 
 
@@ -344,6 +410,43 @@ def pol_cases(rank, world_size, inp):
                     w["tholes"], w["scales"])
     out["matvec"] = _np(torch.autograd.grad(e_uu, v_req)[0])
     out["field_diff"] = _np(field(v) - field(torch.zeros_like(v)))
+    out.update(pol_keyword_cases(inp, grid, kappa))
+    return out
+
+
+def pol_keyword_cases(inp, grid, kappa):
+    """make_sharded_pol_energy (exact adjoint, pol_cases' SCF) under each
+    of the KEYWORD_RUNS, and the port's single-device polarizable force
+    under the same config: {"pol32_spread_f64": {...}, "pol_single32_...":
+    {...}}."""
+    from admp_tpu_torch import EngineConfig, SCFConfig
+    from admp_tpu_torch.parallel import make_sharded_pol_energy
+
+    scf = SCFConfig(max_iter=40, field_tol=1e-3)
+    out = {}
+    for label, dtype, keywords in KEYWORD_RUNS:
+        w = _water(inp, dtype)
+        u0 = torch.zeros_like(w["positions"])
+        args = (w["box"], w["pairs"], w["q_local"], w["pol"], w["tholes"],
+                w["scales"], w["scales"])
+        for name, kw in keywords.items():
+            cfg = EngineConfig(scf=scf, **kw)
+            fn = make_sharded_pol_energy(grid_shape=grid, kappa=kappa,
+                                         lmax=2, scf_config=scf, config=cfg,
+                                         **_topo(inp))
+            pos = w["positions"].clone().requires_grad_(True)
+            e, (u, conv, n_iter) = fn(pos, *args, u0)
+            (g,) = torch.autograd.grad(e, pos)
+            out[f"pol{label}_{name}"] = dict(
+                energy=float(e), forces=_np(g), u=_np(u),
+                converged=bool(conv), n_iter=int(n_iter))
+            single = _single_force(inp, grid, kappa, cfg, lpol=True,
+                                   dtype=w["box"].dtype)
+            e, g = single.get_forces(w["positions"], *args, w["scales"],
+                                     U_init=u0)
+            out[f"pol_single{label}_{name}"] = dict(
+                energy=float(e), forces=_np(g), u=_np(single.U_ind),
+                n_iter=int(single.n_cycle))
     return out
 
 

@@ -16,40 +16,53 @@ sharded PME + Tang-Toennies - dispersion PME on the same pairs; the port's
 full force field is held against that sum.
 
 The EngineConfig keywords ``spread_precision='f64'`` and
-``compensated_sums=True`` on make_sharded_pme_energy and
-make_sharded_ff_energy (make_sharded_pol_energy: test_torch_sharded_pol.py)
-act only below float64:
+``compensated_sums`` on make_sharded_pme_energy and make_sharded_ff_energy
+(make_sharded_pol_energy: test_torch_sharded_pol.py), each set away from
+its default (compensated sums are on by default in both packages):
 
-* at float64 neither changes anything in either package: the spread weights
-  are float64 already (the port's factories give bitwise the default
-  result, and admp_tpu's ``atom_spread_alpha(precision='f64')`` bitwise its
-  default weights), and compensated sums are the default of both
-  EngineConfigs, so the port under each keyword is held against admp_tpu's
-  default results above, at their bounds;
-* at float32 (inputs rounded to float32 in both packages, the float64
+* At float64 neither changes the forces: the spread weights are float64
+  already (the port's factories give bitwise the default result, and
+  admp_tpu's ``atom_spread_alpha(precision='f64')`` bitwise its default
+  weights), and ``compensated_sums=False`` moves only the energy, within
+  rounding. Each run is held against admp_tpu's default results above, at
+  their bounds.
+* At float32 (inputs rounded to float32 in both packages, the float64
   reference at the same rounded inputs) admp_tpu's sharded PME is compiled
-  once, under ``spread_precision='f64'``, which keeps compensated sums (the
-  default): both keywords on. The float64 weights move the PME forces from
+  once, under ``spread_precision='f64'`` with compensated sums (the
+  default), with the rest of the full force field, in a process of its own
+  beside the float64 compiles. The float64 weights move the PME forces from
   the f32 floor (2.6e-4 from float64) to 1.9e-6; the port's sit within
   2.0e-6 of admp_tpu's (bound 5e-6), the full force field's within 3.9e-5
   (bound 1e-4: its dispersion mesh keeps float32 weights, the keyword does
-  not reach the dispersion factory in either package). Energies: each
-  package's error against float64 within max(2x admp_tpu's, 1e-6 of the
-  largest PME term, 5.3e4 kJ/mol). Compensated sums alone (the float32
-  default) are held against the port's single-device force and float64
-  below (admp_tpu's compile of that configuration, ~10 s, is left out of
-  the suite's budget). ``compensated_sums`` changes the real-space pair sum
-  of the PME term only (not the dispersion, Tang-Toennies, the sharded
-  Parseval sum or the self energy, in either package), so the energy and
-  not the forces: the port's forces with and without it are bitwise equal,
-  its PME energy with it 7.9e-4 kJ/mol from float64 and 4.0e-3 without;
-* under every keyword the sharded factories agree with the port's
-  single-device force of the same config: energy within 1e-6 of the largest
-  term, forces within 2e-6 under the float64 weights (measured 1.9e-7) and
-  5e-5 at the f32 floor (2.0e-5: two f32 summation orders); and with
-  float64 at the same inputs: forces 1e-5 under the float64 weights
-  (1.9e-6), 1e-3 at the f32 floor (2.6e-4), energy within 1e-6 of the
-  largest term."""
+  not reach the dispersion factory in either package). PME energies against
+  admp_tpu within half a float32 unit of the largest PME term (measured
+  5.7e-6 kJ/mol): admp_tpu adds its ~5e4 kJ/mol terms in float32, so its
+  total moves in steps of 3.9e-3 kJ/mol. The full force field's within the
+  dispersion's f32 floor besides (measured 2.7e-2 kJ/mol: the port's float32
+  dispersion and Tang-Toennies sit 4.2e-2 from float64, admp_tpu's 1.5e-2,
+  at 3.6e3 kJ/mol terms).
+* ``compensated_sums`` changes the real-space pair sum of the PME term
+  only (not the dispersion, Tang-Toennies, the sharded Parseval sum or the
+  self energy, in either package), so the energy and not the forces: the
+  port's forces with and without it are bitwise equal. Its compensated
+  float32 PME energies sit 7.9e-4-9.2e-4 kJ/mol from float64, sharded and
+  single-device, with either spread weights; the sharded uncompensated one
+  4.0e-3. TOL_E32 lies between the two: the compensated runs meet it and
+  the sharded uncompensated run must miss it. The single-device
+  uncompensated total lands 6.8e-5 from float64 (its pair-sum error
+  happens to cancel the rest of the f32 error), so it is held to nothing
+  but the sharded result. The full force field's float32 energy sits
+  4.1e-2-4.6e-2 from float64 under every keyword: the dispersion and
+  Tang-Toennies terms, which no keyword reaches.
+* Under every keyword the sharded factories agree with the port's
+  single-device force of the same config: forces within 2e-6 under the
+  float64 weights (measured 1.9e-7) and 5e-5 at the f32 floor (2.0e-5:
+  two f32 summation orders); and with float64 at the same inputs: forces
+  1e-5 under the float64 weights (1.9e-6), 1e-3 at the f32 floor
+  (2.6e-4)."""
+
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 
 import jax
 import jax.numpy as jnp
@@ -79,17 +92,23 @@ GRID = (16, 16, 16)
 KAPPA, DISP_KAPPA = 0.62, 0.7
 M_SCALES = np.array([0.0, 0.0, 0.0, 1.0, 1.0])
 RC = 5.0
-# the largest PME term of the box at float64 (the self energy), kJ/mol: a
-# float32 energy's error is set over it
+# the largest PME term of the box at float64 (the self energy), kJ/mol
 E_SCALE = 5.3e4
 # float32, port vs admp_tpu under spread_precision='f64' (compensated sums
 # on), forces (relative RMSE), by factory (module docstring)
 TOL_KW_VS_JAX = {"pme": 5e-6, "ff": 1e-4}
+# float32 energies, kJ/mol: the port vs admp_tpu under the same keywords
+# (PME: half a float32 unit of E_SCALE; the full force field adds the
+# dispersion's f32 floor, 1e-5 of its largest term, the 3.6e3 kJ/mol
+# reciprocal, as test_torch_dispersion.py bounds it), and a compensated
+# run vs float64 at the same inputs, by factory (the polarizable one:
+# test_torch_sharded_pol.py)
+TOL_E_JAX = {"pme": 2e-3, "ff": 1e-5 * 3.6e3}
+TOL_E32 = {"pme": 2e-3, "pol": 5e-3}
 # float32, sharded vs the single-device force of the same config, and vs
 # float64 at the same inputs (forces and dipoles, relative RMSE)
-TOL_KW_SINGLE = {"spread_f64": 2e-6, "compensated": 5e-5,
-                 "uncompensated": 5e-5}
-TOL_KW_F64 = {"spread_f64": 1e-5, "compensated": 1e-3, "uncompensated": 1e-3}
+TOL_KW_SINGLE = {"spread_f64": 2e-6, "default": 5e-5, "uncompensated": 5e-5}
+TOL_KW_F64 = {"spread_f64": 1e-5, "default": 1e-3, "uncompensated": 1e-3}
 
 
 def water_inputs():
@@ -116,6 +135,42 @@ def port():
     return inp, start(cases.energy_cases, N_DEV, args=(inp,), timeout=600)
 
 
+def admp_32_spread_f64(inp):
+    """admp_tpu at float32, inputs rounded to float32, on N_DEV of the
+    virtual devices: the sharded PME under spread_precision='f64' and the
+    rest of the full force field (Tang-Toennies - dispersion PME), which
+    no keyword reaches; (energy, forces) each, in one compile. It runs in a
+    process of its own, beside the float64 compiles, so it sets what
+    conftest sets."""
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    s = inp["sys"]
+    mesh = Mesh(np.array(jax.devices()[:N_DEV]), ("model",))
+    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    box, m, c = f32(s["box"]), f32(M_SCALES), f32(s["c_list"])
+    pairs = jnp.asarray(inp["pairs"], jnp.int32)
+    pme = make_sharded_pme_energy(
+        mesh, "model", config=EngineConfig(spread_precision="f64"),
+        covalent_map=s["covalent_map"], grid_shape=GRID, kappa=KAPPA, lmax=2,
+        axis_types=s["axis_types"], axis_indices=s["axis_indices"])
+    disp = make_sharded_disp_energy(mesh, "model", grid_shape=GRID,
+                                    kappa=DISP_KAPPA, pmax=10,
+                                    covalent_map=s["covalent_map"])
+    tt = make_sharded_pairwise_energy(mesh, "model", tt_damping_qq_c6_kernel,
+                                      s["covalent_map"])
+
+    def rest(p):
+        e_tt = tt(p, box, pairs, m, f32(s["tt_a"]), f32(s["tt_b"]),
+                  f32(s["tt_q"]), c[:, 0])
+        return e_tt - disp(p, box, pairs, c, m)
+
+    out = jax.jit(lambda p: dict(
+        pme32_spread_f64=jax.value_and_grad(pme)(p, box, pairs,
+                                                 f32(inp["q_local"]), m),
+        rest32=jax.value_and_grad(rest)(p)))(f32(s["positions"]))
+    return {k: tuple(np.asarray(x) for x in v) for k, v in out.items()}
+
+
 @pytest.fixture(scope="module")
 def ref(port):
     inp = port[0]
@@ -130,6 +185,10 @@ def ref(port):
         pos, *args)
     out = {}
     common = dict(grid_shape=GRID, kappa=KAPPA, lmax=2, **topo)
+    # admp_tpu's float32 runs compile in a process of its own meanwhile
+    pool = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
+    pool_32 = pool.submit(admp_32_spread_f64, inp)
+    pool.shutdown(wait=False)
     out["pme"] = vg(make_sharded_pme_energy(
         mesh, "model", covalent_map=s["covalent_map"], **common),
         box, pairs, q, m)
@@ -161,30 +220,7 @@ def ref(port):
 
     (_, e_b), g_q = jax.jit(jax.value_and_grad(weighted, has_aux=True))(q)
     out["batch"] = (e_b, g_q)
-
-    # float32, inputs rounded to float32: the PME under each keyword, and the
-    # rest of the full force field (Tang-Toennies - dispersion PME), which
-    # neither keyword reaches
-    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
-    pos32, box32, q32, m32 = f32(pos), f32(box), f32(q), f32(m)
-    out["pme32_spread_f64"] = jax.jit(jax.value_and_grad(
-        make_sharded_pme_energy(
-            mesh, "model", config=EngineConfig(spread_precision="f64"),
-            covalent_map=s["covalent_map"], **common)))(
-                pos32, box32, pairs, q32, m32)
-    disp = make_sharded_disp_energy(mesh, "model", grid_shape=GRID,
-                                    kappa=DISP_KAPPA, pmax=10,
-                                    covalent_map=s["covalent_map"])
-    tt = make_sharded_pairwise_energy(mesh, "model", tt_damping_qq_c6_kernel,
-                                      s["covalent_map"])
-    c32 = f32(s["c_list"])
-
-    def rest(p):
-        e_tt = tt(p, box32, pairs, m32, f32(s["tt_a"]), f32(s["tt_b"]),
-                  f32(s["tt_q"]), c32[:, 0])
-        return e_tt - disp(p, box32, pairs, c32, m32)
-
-    out["rest32"] = jax.jit(jax.value_and_grad(rest))(pos32)
+    out.update(pool_32.result())
     out["ff32_spread_f64"] = tuple(a + b for a, b in zip(
         out["pme32_spread_f64"], out["rest32"]))
     return {k: tuple(None if v is None else np.asarray(v) for v in val)
@@ -252,9 +288,11 @@ def test_precision_keywords_at_float64_match_admp_tpu(ref, ranks, name,
         e, g = r[f"{factory}64_{name}"]
         np.testing.assert_allclose(e, float(e_ref), rtol=1e-9)
         np.testing.assert_allclose(g, g_ref, atol=1e-9)
-        # the port's own default result, bit for bit
+        # the port's own default forces bit for bit; under the float64
+        # weights its energy too
         e0, g0 = r[factory]
-        assert e == e0 and np.array_equal(g, g0)
+        assert np.array_equal(g, g0)
+        assert name == "uncompensated" or e == e0
 
 
 @pytest.mark.parametrize("factory", ["pme", "ff"])
@@ -267,8 +305,9 @@ def test_precision_keywords_at_float32_match_admp_tpu(ref, ranks, factory):
         assert rel_err(g, g_j) < TOL_KW_VS_JAX[factory], rel_err(g, g_j)
         err, err_j = rel_err(g, g_64), rel_err(g_j, g_64)
         assert err <= 1.5 * err_j + 1e-8, (err, err_j)
-        de, de_j = abs(e - e_64), abs(float(e_j) - e_64)
-        assert de <= max(2 * de_j, 1e-6 * E_SCALE), (de, de_j)
+        assert abs(e - float(e_j)) <= TOL_E_JAX[factory], (e, float(e_j))
+        if factory == "pme":
+            assert abs(e - e_64) <= TOL_E32["pme"], (e, e_64)
 
 
 @pytest.mark.parametrize("name", sorted(cases.KEYWORDS32))
@@ -277,16 +316,26 @@ def test_precision_keywords_match_single_device_and_float64(ranks, name):
         e, g = r[f"pme32_{name}"]
         e_s, g_s = r[f"single32_{name}"]
         e_64, g_64 = r["pme64r_default"]
-        assert abs(e - e_s) <= 1e-6 * E_SCALE, (e, e_s)
         assert rel_err(g, g_s) < TOL_KW_SINGLE[name], rel_err(g, g_s)
-        assert abs(e - e_64) <= 1e-6 * E_SCALE, (e, e_64)
         assert rel_err(g, g_64) < TOL_KW_F64[name], rel_err(g, g_64)
+        if name == "uncompensated":
+            # two plain f32 sums in different orders
+            assert abs(e - e_s) <= 1e-6 * E_SCALE, (e, e_s)
+        else:
+            assert abs(e - e_s) <= TOL_E32["pme"], (e, e_s)
+            assert abs(e - e_64) <= TOL_E32["pme"], (e, e_64)
+            assert abs(e_s - e_64) <= TOL_E32["pme"], (e_s, e_64)
 
 
 def test_compensated_sums_change_the_energy_not_the_forces(ranks):
     for r in ranks:
         for factory in ("pme", "ff"):
-            e_c, g_c = r[f"{factory}32_compensated"]
+            e_c, g_c = r[f"{factory}32_default"]
             e_u, g_u = r[f"{factory}32_uncompensated"]
             assert e_c != e_u, factory
             assert np.array_equal(g_c, g_u), factory
+        # the compensated sum meets TOL_E32 against float64, the plain one
+        # misses it
+        e_64 = r["pme64r_default"][0]
+        assert abs(r["pme32_default"][0] - e_64) <= TOL_E32["pme"]
+        assert abs(r["pme32_uncompensated"][0] - e_64) > TOL_E32["pme"]

@@ -268,11 +268,12 @@ def energy_cases(rank, world_size, inp):
 
 
 # EngineConfig keywords of the sharded factories (tests/test_torch_sharded_
-# energy.py's docstring): each at float64 and at float32, where they act;
-# compensated sums are the default, and at float32 their contrast runs too
+# energy.py's docstring), each away from its default (compensated sums are
+# on by default): at float64 and at float32, where they act; at float32 the
+# default config runs too, the compensated contrast of 'uncompensated'
 KEYWORDS = {"spread_f64": dict(spread_precision="f64"),
-            "compensated": dict(compensated_sums=True)}
-KEYWORDS32 = dict(KEYWORDS, uncompensated=dict(compensated_sums=False))
+            "uncompensated": dict(compensated_sums=False)}
+KEYWORDS32 = dict(default={}, **KEYWORDS)
 # (label, dtype of _water, keywords): float64, float32, and the float64
 # reference at the float32 inputs
 KEYWORD_RUNS = (("64", F64, KEYWORDS), ("32", torch.float32, KEYWORDS32),

@@ -14,9 +14,11 @@
 // Dual<3> and Dual<7> over the coefficient functions' scalar inputs), so
 // each branch of the forward takes autograd's side. K2 runs it at S = float;
 // K3 runs the same body at S = Dual1, every input carrying its entry of a
-// direction, which gives each gradient entry's derivative along it. The
-// minimum-image wrap is chain-ruled by hand in S arithmetic (wrap_grad). Row
-// layouts are documented in admp_tpu_torch/ops/cuda/pairs.py.
+// direction, which gives each gradient entry's derivative along it; K3b (K3's
+// backward, csrc/pair_third.cu) at S = Hyper = Dual<1, Dual1>, every input
+// carrying its entries of two directions. The minimum-image wrap is
+// chain-ruled by hand in S arithmetic (wrap_grad). Row layouts are documented
+// in admp_tpu_torch/ops/cuda/pairs.py.
 
 #pragma once
 
@@ -64,6 +66,8 @@ struct Dual {
 };
 
 using Dual1 = Dual<1>;
+// a hyper-dual: the outer tangent (eps) and the inner one (delta) over float
+using Hyper = Dual<1, Dual1>;
 
 template <int N, class S>
 __device__ __forceinline__ Dual<N, S> operator+(const Dual<N, S>& a, const Dual<N, S>& b) {
@@ -318,9 +322,44 @@ __device__ __forceinline__ T thole_argument(const T& r, const T& dmp, const T& a
   return a * u;
 }
 
+// Whether T is K3b's scalar (Hyper) or a dual over it
 template <class T>
-__device__ __forceinline__ T exp_damping(const T& au) {
-  return val(au) < 50.f ? dexp(-au) : T(0.f);
+constexpr bool kOverHyper = false;
+template <>
+constexpr bool kOverHyper<Hyper> = true;
+template <int N>
+constexpr bool kOverHyper<Dual<N, Hyper>> = true;
+
+// The Thole damping terms -exp(-au) (1 + au + au^2/2 [+ au^3/4]) (cm, d0m)
+// and -exp(-au) (1 + au + au^2/2 + au^3/6 [+ au^4/18]) (q1m, q0m), the
+// exponential cut to zero past au = 50. In K3b's hyper-duals the
+// polynomials' tangents overflow float there (au ~ 1e7 at a zero-pol site,
+// and the sigmoid's slope scales each tangent by 1e5), and zero times that
+// is not zero, so they are not formed there; K2's and K3's code is as it
+// was.
+template <class T>
+struct Damping {
+  T cm, d0m, q0m, q1m;
+};
+
+template <class T>
+__device__ __forceinline__ Damping<T> thole_damping(const T& au) {
+  Damping<T> t;
+  if constexpr (kOverHyper<T>) {
+    if (!(val(au) < 50.f)) {
+      t.cm = t.d0m = t.q0m = t.q1m = T(0.f);
+      return t;
+    }
+  }
+  const T exp_au = val(au) < 50.f ? dexp(-au) : T(0.f);
+  const T au2 = au * au;
+  const T au3 = au2 * au;
+  const T au4 = au3 * au;
+  t.cm = -exp_au * (1.0f + au + 0.5f * au2);
+  t.d0m = -exp_au * (1.0f + au + 0.5f * au2 + au3 / 4.0f);
+  t.q0m = -exp_au * (1.0f + au + 0.5f * au2 + au3 / 6.0f + au4 / 18.0f);
+  t.q1m = -exp_au * (1.0f + au + 0.5f * au2 + au3 / 6.0f);
+  return t;
 }
 
 template <class T>
@@ -388,15 +427,8 @@ template <class T, int LMAX>
 __device__ __forceinline__ void induced_coefficients(const T& r, const T& t1, const T& t2,
                                                      const T& dmp, const T& pscale,
                                                      const T& kappa, IndCoef<T>& c) {
-  const T au = thole_argument(r, dmp, thole_width(pscale, t1, t2));
-  const T exp_au = exp_damping(au);
-  const T au2 = au * au;
-  const T au3 = au2 * au;
-  const T au4 = au3 * au;
-  const T tcm = -exp_au * (1.0f + au + 0.5f * au2);
-  const T td0m = -exp_au * (1.0f + au + 0.5f * au2 + au3 / 4.0f);
-  const T tq0m = -exp_au * (1.0f + au + 0.5f * au2 + au3 / 6.0f + au4 / 18.0f);
-  const T tq1m = -exp_au * (1.0f + au + 0.5f * au2 + au3 / 6.0f);
+  const Damping<T> t = thole_damping(thole_argument(r, dmp, thole_width(pscale, t1, t2)));
+  const T &tcm = t.cm, &td0m = t.d0m, &tq0m = t.q0m, &tq1m = t.q1m;
   const T r_inv = 1.0f / r;
   const T d2 = kDielectric * r_inv * r_inv;
   const T d3 = d2 * r_inv;
@@ -443,12 +475,8 @@ template <class T>
 __device__ __forceinline__ void uu_coefficients(const T& r, const T& t1, const T& t2,
                                                 const T& dmp, const T& pscale, const T& kappa,
                                                 T& m0, T& m1) {
-  const T au = thole_argument(r, dmp, thole_width(pscale, t1, t2));
-  const T exp_au = exp_damping(au);
-  const T au2 = au * au;
-  const T au3 = au2 * au;
-  const T td0m = -exp_au * (1.0f + au + 0.5f * au2 + au3 / 4.0f);
-  const T td1m = -exp_au * (1.0f + au + 0.5f * au2);
+  const Damping<T> t = thole_damping(thole_argument(r, dmp, thole_width(pscale, t1, t2)));
+  const T &td0m = t.d0m, &td1m = t.cm;
   const T r_inv = 1.0f / r;
   const T d3 = kDielectric * r_inv * r_inv * r_inv;
   const T kr = kappa * r;
@@ -562,24 +590,65 @@ __device__ __forceinline__ Wrapped<S> wrap(const S* a, const S* b, const S* box,
 // The gradient body's inputs in S, its masked pairs and the wrap's chain rule
 // ---------------------------------------------------------------------------
 
-// An input of the pair as S: its value, and for Dual1 its tangent t[k] (the
-// cotangent direction K3 differentiates along).
+// An input of the pair as S: its value; for Dual1 its tangent t[k] (the
+// cotangent direction K3 differentiates along); for Hyper t[k] as the eps
+// tangent and h[k] as the delta tangent (K3b's two directions).
 template <class S>
-__device__ __forceinline__ S lift(float v, const float* t, size_t k);
+__device__ __forceinline__ S lift(float v, const float* t, const float* h, size_t k);
 template <>
-__device__ __forceinline__ float lift<float>(float v, const float*, size_t) { return v; }
+__device__ __forceinline__ float lift<float>(float v, const float*, const float*, size_t) {
+  return v;
+}
 template <>
-__device__ __forceinline__ Dual1 lift<Dual1>(float v, const float* t, size_t k) {
+__device__ __forceinline__ Dual1 lift<Dual1>(float v, const float* t, const float*, size_t k) {
   Dual1 r;
   r.v = v;
   r.d[0] = t[k];
   return r;
 }
+template <>
+__device__ __forceinline__ Hyper lift<Hyper>(float v, const float* t, const float* h, size_t k) {
+  Hyper r;
+  r.v.v = v;
+  r.v.d[0] = h[k];
+  r.d[0].v = t[k];
+  r.d[0].d[0] = 0.f;
+  return r;
+}
 
-// The part of a gradient entry that is written out: its value (K2), or its
-// derivative along the direction (K3)
+// The cotangent ct of a pair's energy as the body multiplies by it: a float,
+// except in K3b, where it carries the delta tangent h (the cotangent of K3's
+// output J c)
+template <class S>
+struct CtOf {
+  using type = float;
+  static __device__ __forceinline__ float lift(float v, const float*, size_t) { return v; }
+};
+template <>
+struct CtOf<Hyper> {
+  using type = Hyper;
+  static __device__ __forceinline__ Hyper lift(float v, const float* h, size_t k) {
+    Hyper r(v);
+    r.v.d[0] = h[k];
+    return r;
+  }
+};
+
+// The parts of a gradient entry that are written out: its value (K2), its
+// derivative along the direction (K3), or in K3b part 0, the eps-delta part
+// (the cotangent of K3's table inputs), and part 1, the delta part (the
+// cotangent of K3's direction inputs)
+template <class S>
+constexpr int kParts = 1;
+template <>
+constexpr int kParts<Hyper> = 2;
+
+template <int J>
 __device__ __forceinline__ float part(float x) { return x; }
+template <int J>
 __device__ __forceinline__ float part(const Dual1& x) { return x.d[0]; }
+template <int J>
+__device__ __forceinline__ float part(const Hyper& x) { return J == 0 ? x.d[0].d[0] : x.v.d[0]; }
 
 template <int NT, class S>
 __device__ __forceinline__ Dual<NT, S> seed(const S& v, int slot) {
@@ -590,43 +659,55 @@ __device__ __forceinline__ Dual<NT, S> seed(const S& v, int slot) {
   return r;
 }
 
-// The per-pair outputs of a masked pair: zeros (oi, oj: its two output rows)
-template <class L>
-__device__ __forceinline__ void zero_pair(int p, int C, float* __restrict__ oi,
-                                          float* __restrict__ oj, float* __restrict__ dscl,
-                                          float* __restrict__ dct) {
-  for (int k = 0; k < L::F; ++k) {
-    oi[k] = 0.f;
-    oj[k] = 0.f;
+// The per-pair outputs of a masked pair: zeros (oi[J], oj[J]: its two
+// output rows of part J)
+template <class L, int NP>
+__device__ __forceinline__ void zero_pair(int p, int C, float* const* oi, float* const* oj,
+                                          float* const* dscl, float* __restrict__ dct) {
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    for (int k = 0; k < L::F; ++k) {
+      oi[j][k] = 0.f;
+      oj[j][k] = 0.f;
+    }
+    for (int r = 0; r < L::NSCL; ++r) dscl[j][r * C + p] = 0.f;
   }
-  for (int r = 0; r < L::NSCL; ++r) dscl[r * C + p] = 0.f;
   if (dct != nullptr) dct[p] = 0.f;
 }
 
 // Hand chain rule of the wrap, from gd = d(ct e)/dd: d = s' box,
 // s' = s - floor(s + 1/2), s = raw binv (floor has zero derivative); in S,
 // so that K3 keeps the position x box, position x box-inverse and box x
-// box-inverse terms. Writes the position columns of the output rows oi, oj,
-// adds the box and box-inverse gradients to sg.
+// box-inverse terms. Writes the position columns of the output rows oi[J],
+// oj[J] of each part J, adds the box and box-inverse gradients to sg[J].
 template <class S>
 __device__ __forceinline__ void wrap_grad(const Wrapped<S>& w, const S* box, const S* binv,
-                                          const S* gd, float* __restrict__ oi,
-                                          float* __restrict__ oj, float* sg) {
+                                          const S* gd, float* const* oi, float* const* oj,
+                                          float (*sg)[kNScal]) {
   S gs[3];  // dE/ds'
 #pragma unroll
   for (int c = 0; c < 3; ++c) gs[c] = box[3 * c] * gd[0] + box[3 * c + 1] * gd[1] + box[3 * c + 2] * gd[2];
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
     const S g = binv[3 * m] * gs[0] + binv[3 * m + 1] * gs[1] + binv[3 * m + 2] * gs[2];
-    oi[m] = part(g);
-    oj[m] = -part(g);
+    oi[0][m] = part<0>(g);
+    oj[0][m] = -part<0>(g);
+    if constexpr (kParts<S> > 1) {
+      oi[1][m] = part<1>(g);
+      oj[1][m] = -part<1>(g);
+    }
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      sg[1 + 3 * c + k] += part(gd[k] * w.s[c]);     // box[c][k]
-      sg[10 + 3 * k + c] += part(gs[c] * w.raw[k]);  // binv[k][c]
+      const S b = gd[k] * w.s[c], v = gs[c] * w.raw[k];
+      sg[0][1 + 3 * c + k] += part<0>(b);   // box[c][k]
+      sg[0][10 + 3 * k + c] += part<0>(v);  // binv[k][c]
+      if constexpr (kParts<S> > 1) {
+        sg[1][1 + 3 * c + k] += part<1>(b);
+        sg[1][10 + 3 * k + c] += part<1>(v);
+      }
     }
   }
 }
@@ -830,7 +911,7 @@ __device__ __forceinline__ D induced_contract(const IndCoef<T>& g, const IndCoef
 //      then the frame and the rotations over the 3 components of d,
 //      contracted with the rotated values' adjoints, and r with dE/dr.
 // Every branch of the forward (the degenerate seed, the frame guard, the
-// damping floor, the sigmoid and Thole clips, the exp_damping cut) runs in
+// damping floor, the sigmoid and Thole clips, the thole_damping cut) runs in
 // the same source in step 4, so each takes autograd's side of it.
 template <class S, int KIND, int LMAX>
 __device__ __forceinline__ void pair_energy_grad(const S* d, bool degenerate, const S* fi,
@@ -979,10 +1060,86 @@ __device__ __forceinline__ void pair_energy_grad(const S* d, bool degenerate, co
 // gradient pair_energy_grad, evaluated in S. K2's body at S = float; K3's at
 // S = Dual1, where every input carries its entry of the direction (ci, cj,
 // cscl, cscal), so part() of each gradient entry is that entry of ct H c,
-// and part(e) is J c, written to dct. ri, rj: the pair's two input rows; ci,
-// cj: their direction rows (S = Dual1, else unread); oi, oj: its two output
-// rows (the kernels stage them in shared memory). The per-pair outputs of a
-// masked pair are zeros.
+// and part(e) is J c, written to dct. K3b's at S = Hyper: every input also
+// carries its entry of a second direction (hi, hj, hscl, hscal) as the delta
+// tangent, and ct its entry of hct; part 0 of each gradient entry is then
+// that entry of ct T[c, h] + hct H c, part 1 that of ct H h + hct grad e, and
+// part 0 of e is h^T H c, written to dct. ri, rj: the pair's two input rows;
+// ci, cj, hi, hj: their direction rows (read where S carries them); oi[J],
+// oj[J]: its two output rows of part J (the kernels stage them in shared
+// memory), dscl[J] and sg[J] its scale rows and scalars of part J. The
+// per-pair outputs of a masked pair are zeros.
+template <int KIND, int LMAX, class S>
+__device__ __forceinline__ void pair_grad_parts(
+    int p, int C, const float* __restrict__ ri, const float* __restrict__ rj,
+    const float* __restrict__ scl, const float* __restrict__ scal,
+    const float* __restrict__ ct, const float* __restrict__ ci,
+    const float* __restrict__ cj, const float* __restrict__ cscl,
+    const float* __restrict__ cscal, const float* __restrict__ hi,
+    const float* __restrict__ hj, const float* __restrict__ hscl,
+    const float* __restrict__ hscal, const float* __restrict__ hct, float* const* oi,
+    float* const* oj, float* const* dscl, float* __restrict__ dct, float (*sg)[kNScal]) {
+  using L = Layout<KIND, LMAX>;
+  constexpr int F = L::F;
+  constexpr int NF = L::NF;
+  constexpr int NS = L::NS;
+  constexpr int NP = kParts<S>;
+  if (!(scl[C + p] > 0.5f)) {
+    zero_pair<L, NP>(p, C, oi, oj, dscl, dct);
+    return;
+  }
+  S a[F], b[F], box[9], binv[9];
+#pragma unroll
+  for (int k = 0; k < F; ++k) {
+    a[k] = lift<S>(ri[k], ci, hi, k);
+    b[k] = lift<S>(rj[k], cj, hj, k);
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    box[k] = lift<S>(scal[1 + k], cscal, hscal, 1 + k);
+    binv[k] = lift<S>(scal[10 + k], cscal, hscal, 10 + k);
+  }
+  const Wrapped<S> w = wrap(a, b, box, binv);
+  const bool degenerate = (val(a[1]) == val(b[1])) && (val(a[2]) == val(b[2]));
+  const typename CtOf<S>::type ctp = CtOf<S>::lift(ct[p], hct, p);
+  S sv[NS];
+  sv[0] = lift<S>(scl[p], cscl, hscl, p);
+  if constexpr (NS > 1) sv[1] = lift<S>(scl[2 * C + p], cscl, hscl, 2 * C + p);
+  const S kappa = lift<S>(scal[0], cscal, hscal, 0);
+  S gd[3], gfi[NF], gfj[NF], gs[NS], gk, e;
+  pair_energy_grad<S, KIND, LMAX>(w.d, degenerate, a + 3, b + 3, sv, kappa, gd, gfi, gfj, gs,
+                                  gk, e);
+  if (dct != nullptr) dct[p] = part<0>(e);
+#pragma unroll
+  for (int m = 0; m < NF; ++m) {
+    const S x = ctp * gfi[m], y = ctp * gfj[m];
+    oi[0][3 + m] = part<0>(x);
+    oj[0][3 + m] = part<0>(y);
+    if constexpr (NP > 1) {
+      oi[1][3 + m] = part<1>(x);
+      oj[1][3 + m] = part<1>(y);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NS; ++m) {
+    const S x = ctp * gs[m];
+    dscl[0][scale_row(m) * C + p] = part<0>(x);
+    if constexpr (NP > 1) dscl[1][scale_row(m) * C + p] = part<1>(x);
+  }
+  {
+    const S x = ctp * gk;  // kappa
+    sg[0][0] += part<0>(x);
+    if constexpr (NP > 1) sg[1][0] += part<1>(x);
+  }
+#pragma unroll
+  for (int m = 0; m < 3; ++m) gd[m] = ctp * gd[m];
+  wrap_grad(w, box, binv, gd, oi, oj, sg);
+#pragma unroll
+  for (int j = 0; j < NP; ++j) dscl[j][C + p] = 0.f;  // the mask row
+}
+
+// K2's and K3's body (S = float, Dual1): pair_grad_parts with one part, the
+// outputs as single rows
 template <int KIND, int LMAX, class S>
 __device__ __forceinline__ void pair_grad_mixed(
     int p, int C, const float* __restrict__ ri, const float* __restrict__ rj,
@@ -991,48 +1148,13 @@ __device__ __forceinline__ void pair_grad_mixed(
     const float* __restrict__ cj, const float* __restrict__ cscl,
     const float* __restrict__ cscal, float* __restrict__ oi, float* __restrict__ oj,
     float* __restrict__ dscl, float* __restrict__ dct, float* sg) {
-  using L = Layout<KIND, LMAX>;
-  constexpr int F = L::F;
-  constexpr int NF = L::NF;
-  constexpr int NS = L::NS;
-  if (!(scl[C + p] > 0.5f)) {
-    zero_pair<L>(p, C, oi, oj, dscl, dct);
-    return;
-  }
-  S a[F], b[F], box[9], binv[9];
-#pragma unroll
-  for (int k = 0; k < F; ++k) {
-    a[k] = lift<S>(ri[k], ci, k);
-    b[k] = lift<S>(rj[k], cj, k);
-  }
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    box[k] = lift<S>(scal[1 + k], cscal, 1 + k);
-    binv[k] = lift<S>(scal[10 + k], cscal, 10 + k);
-  }
-  const Wrapped<S> w = wrap(a, b, box, binv);
-  const bool degenerate = (val(a[1]) == val(b[1])) && (val(a[2]) == val(b[2]));
-  const float ctp = ct[p];
-  S sv[NS];
-  sv[0] = lift<S>(scl[p], cscl, p);
-  if constexpr (NS > 1) sv[1] = lift<S>(scl[2 * C + p], cscl, 2 * C + p);
-  const S kappa = lift<S>(scal[0], cscal, 0);
-  S gd[3], gfi[NF], gfj[NF], gs[NS], gk, e;
-  pair_energy_grad<S, KIND, LMAX>(w.d, degenerate, a + 3, b + 3, sv, kappa, gd, gfi, gfj, gs,
-                                  gk, e);
-  if (dct != nullptr) dct[p] = part(e);
-#pragma unroll
-  for (int m = 0; m < NF; ++m) {
-    oi[3 + m] = part(ctp * gfi[m]);
-    oj[3 + m] = part(ctp * gfj[m]);
-  }
-#pragma unroll
-  for (int m = 0; m < NS; ++m) dscl[scale_row(m) * C + p] = part(ctp * gs[m]);
-  sg[0] += part(ctp * gk);  // kappa
-#pragma unroll
-  for (int m = 0; m < 3; ++m) gd[m] = ctp * gd[m];
-  wrap_grad(w, box, binv, gd, oi, oj, sg);
-  dscl[C + p] = 0.f;  // the mask row
+  static_assert(kParts<S> == 1, "K3b's body is pair_grad_parts");
+  float* const poi[1] = {oi};
+  float* const poj[1] = {oj};
+  float* const pdscl[1] = {dscl};
+  pair_grad_parts<KIND, LMAX, S>(p, C, ri, rj, scl, scal, ct, ci, cj, cscl, cscal, nullptr,
+                                 nullptr, nullptr, nullptr, nullptr, poi, poj, pdscl, dct,
+                                 reinterpret_cast<float(*)[kNScal]>(sg));
 }
 
 // A block's output rows, staged by its threads in s_out[0] and s_out[1]

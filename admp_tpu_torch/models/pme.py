@@ -20,7 +20,9 @@ r0 = -field(u0) keeps its graph, so the backward differentiates the pair
 kernel's backward (K3 for ``'pol'``), and the adjoint differentiates the
 matvec with respect to its parameters (K3 for ``'uu'``). Gradients with
 respect to Q_local, pol, tholes, mScales and pScales flow through
-``get_energy`` on either path.
+``get_energy`` on either path. With ``adjoint_fixed_iters`` set those
+gradients are differentiable again, as admp_tpu's are: a force-matching
+loss takes the third derivative (K3b for ``'pol'`` and ``'uu'``).
 
 The precision modes (EngineConfig, admp_tpu/models/pme.py:380-622) are
 admp_tpu's: under a float64 real-space mode the frames, the multipole

@@ -60,7 +60,8 @@ def _start_build(name: str):
     return proc, tmp, out
 
 
-def build(names=("pairs", "pair_hvp", "spread", "spread_tiled")) -> dict[str, str]:
+def build(names=("pairs", "pair_hvp", "pair_third", "spread", "spread_tiled")
+          ) -> dict[str, str]:
     """Compile the named sources concurrently (skipping those already built)
     and return the compiler output of each build that ran (``-Xptxas -v``
     lists every kernel's registers, shared memory and spills). Raises on a

@@ -23,6 +23,8 @@ LIBRARIES = {
     "admp_pair_fwd": "pairs", "admp_pair_bwd": "pairs",
     "admp_pair_block_size": "pairs",
     "admp_pair_hvp": "pair_hvp", "admp_pair_hvp_block_size": "pair_hvp",
+    "admp_pair_third": "pair_third",
+    "admp_pair_third_block_size": "pair_third",
     "admp_spread": "spread", "admp_gather": "spread",
     "admp_spread_tiled": "spread_tiled", "admp_gather_tiled": "spread_tiled",
 }

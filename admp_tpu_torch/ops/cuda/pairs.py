@@ -1,11 +1,14 @@
-"""Fused real-space pair kernel (K1, forward), its backward (K2) and the
-backward's own backward (K3, the Hessian-vector kernel), in CUDA.
+"""Fused real-space pair kernel (K1, forward), its backward (K2), the
+backward's own backward (K3, the Hessian-vector kernel) and K3's backward
+(K3b, the third derivative), in CUDA.
 
 Replaces admp_tpu/ops/pallas/pairs.py ``_make_fwd_kernel`` (:330, launched by
 ``pair_perm_energies`` :392), ``_make_bwd_kernel`` (:343, launched by
 ``_pair_bwd_op`` :502) and ``_make_hvp_kernel`` (:445, launched by
-``_pair_bwd_op_bwd`` :569). Sources: admp_tpu_torch/csrc/pairs.cu (K1, K2),
-csrc/pair_hvp.cu (K3), both on the device templates of
+``_pair_bwd_op_bwd`` :569). K3b has no TPU kernel: admp_tpu's HVP has no
+VJP, and it takes this derivative on its XLA route only. Sources:
+admp_tpu_torch/csrc/pairs.cu (K1, K2), csrc/pair_hvp.cu (K3),
+csrc/pair_third.cu (K3b), all on the device templates of
 csrc/pair_energy.cuh.
 
 What it computes, per pair: the minimum-image wrap, the quasi-internal frame,
@@ -39,13 +42,16 @@ takes autograd's side. It stages each block's output rows in shared memory
 and stores them coalesced. K3 runs the same mixed-mode body with every value
 a one-tangent dual along c (as admp_tpu's kernel takes ``jax.jvp`` of its
 gradient), with K2's staged stores: each gradient entry comes out with its
-derivative along c. The launchers keep their host work lean, as the spread
-launchers do (ops/cuda/entries.py).
+derivative along c. K3b runs the same body once more, every value a
+hyper-dual along c and along the cotangent h of K3's outputs: one pass gives
+the cotangents of K3's tables and of its direction. The launchers keep
+their host work lean, as the spread launchers do (ops/cuda/entries.py).
 
 Autograd: ``PairEnergyFn`` (forward K1) has the backward ``PairBwdFn``
-(forward K2, backward K3), so the pair energies are twice differentiable on
-the kernels, as admp_tpu's ``_pair_bwd_op`` is a custom_vjp. K3's backward
-is ``once_differentiable``: a third derivative raises.
+(forward K2, backward ``PairHvpFn``: forward K3, backward K3b), so the pair
+energies are three times differentiable on the kernels, as admp_tpu's are
+on its XLA route. K3b's backward is ``once_differentiable``: a fourth
+derivative raises.
 """
 
 from __future__ import annotations
@@ -134,6 +140,31 @@ def pair_hvp_torch(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl, c_scal,
         h = sum((g * c).sum() for g, c in zip(grads, (c_gi, c_gj, c_scl,
                                                       c_scal)))
         return torch.autograd.grad(h, x + [ct_r])
+
+
+def pair_third_torch(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl, c_scal,
+                     h_gi, h_gj, h_scl, h_scal, h_ct, lmax: int,
+                     kind: str = "perm"):
+    """Plain version of K3b: the VJP of K3's outputs (d_gi, d_gj, d_scl,
+    d_scal, d_ct) at cotangents (h_gi, h_gj, h_scl, h_scal, h_ct), by
+    autograd of ``pair_energies_torch`` three times. Returns the cotangents
+    of K3's nine inputs: (x_gi, x_gj, x_scl, x_scal, x_ct, x_cgi, x_cgj,
+    x_cscl, x_cscal), each of its input's shape (zeros where it has no
+    derivative)."""
+    with torch.enable_grad():
+        x = [t.detach().requires_grad_(True) for t in (g_i, g_j, scl, scal)]
+        ct_r = ct.detach().requires_grad_(True)
+        cs = [t.detach().requires_grad_(True)
+              for t in (c_gi, c_gj, c_scl, c_scal)]
+        e = pair_energies_torch(*x, lmax, kind)
+        grads = torch.autograd.grad((e * ct_r).sum(), x, create_graph=True)
+        h = sum((g * c).sum() for g, c in zip(grads, cs))
+        outs = torch.autograd.grad(h, x + [ct_r], create_graph=True)
+        phi = sum((o * t).sum() for o, t in zip(
+            outs, (h_gi, h_gj, h_scl, h_scal, h_ct)))
+        leaves = x + [ct_r] + cs
+        return tuple(torch.zeros_like(t) if d is None else d for t, d in zip(
+            leaves, torch.autograd.grad(phi, leaves, allow_unused=True)))
 
 
 def hvp_directions(tables, kind: str, seed: int):
@@ -235,10 +266,10 @@ def _refuse(g_i, g_j, scl, scal, lmax, kind, names=(), operands=()):
     """Raise the ValueError that names the first thing the kernels cannot
     take: in the tables (_check), then in the operands (_operand; ct is
     shaped as a column of g_i, c_gi as g_i, c_gj as g_j, c_scl as scl,
-    c_scal as scal)."""
+    c_scal as scal, and K3b's h_ct, h_gi, h_gj, h_scl, h_scal likewise)."""
     _check(g_i, g_j, scl, scal, lmax, kind)
     for name, t, like in zip(names, operands, (g_i[:, 0], g_i, g_j, scl,
-                                               scal)):
+                                               scal) * 2):
         _operand(name, t, like)
     raise ValueError(f"pair tables ({kind}, lmax={lmax}): not taken")
 
@@ -324,8 +355,9 @@ def launch_pair_hvp(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl, c_scal,
         return dgi, dgj, dscl, torch.zeros_like(scal), dct
     dscal_blocks = torch.empty(_n_blocks(c, "admp_pair_hvp_block_size"),
                                N_SCAL, dtype=_F32, device=g_i.device)
+    ops = tuple(map(_dense, ops))  # held until the launch has read them
     status = _entry("admp_pair_hvp")(
-        *(_P(t.data_ptr()) for t in (g_i, g_j, scl, scal, *map(_dense, ops),
+        *(_P(t.data_ptr()) for t in (g_i, g_j, scl, scal, *ops,
                                      dgi, dgj, dscl, dct, dscal_blocks)),
         c, KINDS[kind], lmax, _P(_raw_stream(dev)))
     if status:
@@ -339,10 +371,75 @@ launch_pair_hvp.launches = 0
 launch_pair_hvp.by_kind = dict.fromkeys(KINDS, 0)  # the launches per kind
 
 
+def launch_pair_third(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl, c_scal,
+                      h_gi, h_gj, h_scl, h_scal, h_ct, lmax: int, kind: str):
+    """K3b: the VJP of K3 at cotangents (h_gi, h_gj, h_scl, h_scal, h_ct) of
+    its outputs. Returns the cotangents of K3's inputs (x_gi, x_gj, x_scl,
+    x_scal, x_ct, x_cgi, x_cgj, x_cscl, x_cscal): ct T[c, h] + h_ct H c for
+    the tables, h^T H c for ct, ct H h + h_ct grad e for the direction."""
+    dev = g_i.get_device()
+    c = g_i.shape[0]
+    ops = (ct, c_gi, c_gj, c_scl, c_scal, h_gi, h_gj, h_scl, h_scal, h_ct)
+    shapes = ((c,), g_i.shape, g_j.shape, scl.shape, scal.shape)
+    if not _fits(dev, lmax, kind, g_i, g_j, scl, scal,
+                 *zip(ops, shapes[:5] + shapes[1:] + shapes[:1])):
+        _refuse(g_i, g_j, scl, scal, lmax, kind,
+                ("ct", "c_gi", "c_gj", "c_scl", "c_scal", "h_ct", "h_gi",
+                 "h_gj", "h_scl", "h_scal"), ops[:5] + (h_ct,) + ops[5:9])
+    out = [torch.empty_like(t) for t in (g_i, g_j, scl)]
+    dct = torch.empty(c, dtype=_F32, device=g_i.device)
+    outc = [torch.empty_like(t) for t in (g_i, g_j, scl)]
+    if c == 0:
+        zero = torch.zeros_like(scal)
+        return (*out, zero, dct, *outc, zero)
+    dscal_blocks = torch.empty(_n_blocks(c, "admp_pair_third_block_size"), 2,
+                               N_SCAL, dtype=_F32, device=g_i.device)
+    ops = tuple(map(_dense, ops))  # held until the launch has read them
+    status = _entry("admp_pair_third")(
+        *(_P(t.data_ptr()) for t in (g_i, g_j, scl, scal, *ops,
+                                     *out, dct, *outc, dscal_blocks)),
+        c, KINDS[kind], lmax, _P(_raw_stream(dev)))
+    if status:
+        build.check(status, f"pair third derivative ({kind}, lmax={lmax})")
+    launch_pair_third.launches += 1
+    launch_pair_third.by_kind[kind] += 1
+    dscal = dscal_blocks.sum(dim=0)
+    return (*out, dscal[0], dct, *outc, dscal[1])
+
+
+launch_pair_third.launches = 0
+launch_pair_third.by_kind = dict.fromkeys(KINDS, 0)  # the launches per kind
+
+
+class PairHvpFn(torch.autograd.Function):
+    """The pair energies' Hessian-vector products on the kernels: forward
+    K3, backward K3b, the pair energies' third derivative (admp_tpu takes
+    it on its XLA route, where JAX differentiates the plain pair energies;
+    its Pallas HVP has no VJP). K3b's own backward is
+    ``once_differentiable``: a fourth derivative raises."""
+
+    @staticmethod
+    def forward(ctx, g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl, c_scal,
+                lmax, kind):
+        ctx.save_for_backward(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl,
+                              c_scal)
+        ctx.lmax, ctx.kind = lmax, kind
+        return launch_pair_hvp(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl,
+                               c_scal, lmax, kind)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, h_gi, h_gj, h_scl, h_scal, h_ct):
+        return (*launch_pair_third(*ctx.saved_tensors, h_gi, h_gj, h_scl,
+                                   h_scal, h_ct, ctx.lmax, ctx.kind),
+                None, None)
+
+
 class PairBwdFn(torch.autograd.Function):
-    """The pair energies' gradients on the kernels: forward K2, backward K3
-    (admp_tpu's ``_pair_bwd_op`` custom_vjp). ``once_differentiable``: a
-    third derivative raises instead of coming out silently zero."""
+    """The pair energies' gradients on the kernels: forward K2, backward
+    ``PairHvpFn`` (K3, whose own backward is K3b), as admp_tpu's
+    ``_pair_bwd_op`` is a custom_vjp. Without a graph asked of it, its
+    backward is one K3 launch and records nothing."""
 
     @staticmethod
     def forward(ctx, g_i, g_j, scl, scal, ct, lmax, kind):
@@ -351,10 +448,9 @@ class PairBwdFn(torch.autograd.Function):
         return launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, c_gi, c_gj, c_scl, c_scal):
         g_i, g_j, scl, scal, ct = ctx.saved_tensors
-        return (*launch_pair_hvp(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl,
+        return (*PairHvpFn.apply(g_i, g_j, scl, scal, ct, c_gi, c_gj, c_scl,
                                  c_scal, ctx.lmax, ctx.kind), None, None)
 
 

@@ -19,11 +19,25 @@ the parameters theta. Its backward differentiates the matvec once more, so it
 needs a twice-differentiable matvec: the plain path, or the pair kernel with
 its Hessian-vector backward (ops/cuda/pairs.PairBwdFn).
 
-The backward itself is ``once_differentiable``: differentiating it again (a
-force-matching loss on an exact-adjoint polarizable energy) raises. Its
-adjoint solve is a host-checked loop whose iterates carry no graph back to
-theta, so a third derivative through it would come out incomplete; admp_tpu
-refuses it too (reverse mode through its ``lax.while_loop``).
+Its backward is differentiable where admp_tpu's is, with admp_tpu's
+semantics (its custom_vjp backward, admp_tpu/scf/solver.py:224-246,
+364-388, differentiated by JAX). A force-matching loss on an exact-adjoint
+polarizable energy takes that third derivative. It runs when the backward
+runs under ``create_graph`` and ``SCFConfig.adjoint_fixed_iters`` is set:
+the adjoint solve is ``pcg_fixed`` with its graph kept, w differentiable in
+the cotangent g. Its matvec runs at detached theta, as admp_tpu's runs at
+stop_gradient(inputs), through ``_FixedOperator``. That operator is the
+symmetric A, so its VJP is one more matvec, and the matvec need not keep a
+graph to v. theta_bar = -vjp_theta[A(theta)(u* - u0)](w) is built with
+``create_graph``. u* - u0 is detached, as admp_tpu's external-r0 solve
+stop-gradients it. The classic solve of ``make_induced_dipole_solver``
+keeps u*'s graph there (admp_tpu: field_fn(u*, theta)). u* is a saved
+output, so its own derivative takes ``ImplicitSolve`` again, as a custom_vjp
+residual does, and the forward may stay the host-checked ``pcg``. The
+adjoint warm start stays detached (admp_tpu: stop_gradient(x0)). In every
+other case the backward builds no graph. A second derivative through the
+host-checked adjoint (``adjoint_fixed_iters=None``) raises, as reverse mode
+through admp_tpu's ``lax.while_loop`` does.
 
 ``SCFConfig.method='jacobi'`` replaces PCG by the reference's damped Jacobi
 iteration (admp_tpu/scf/solver.py:112-130), host-checked like ``pcg``; it
@@ -45,7 +59,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from admp_tpu_torch.settings import SCFConfig
 from admp_tpu_torch.utils.constants import DIELECTRIC
@@ -81,11 +94,11 @@ def pcg(matvec, r0, precond, x0, max_iter, tol_field, site_mask):
     rz = _dot(r, p)
     x = x0
     it = 0
-    resid = float(torch.max(torch.abs(r * site_mask)))  # host sync
+    resid = float(torch.max(torch.abs(r.detach() * site_mask)))  # host sync
     while resid >= tol_field and it < max_iter:
         x, r, p, rz = _pcg_step(matvec, precond, x, r, p, rz)
         it += 1
-        resid = float(torch.max(torch.abs(r * site_mask)))  # host sync
+        resid = float(torch.max(torch.abs(r.detach() * site_mask)))  # host sync
     return x, resid < tol_field, it, r
 
 
@@ -98,7 +111,7 @@ def pcg_fixed(matvec, r0, precond, x0, n_iters, tol_field, site_mask):
     x = x0
     for _ in range(n_iters):
         x, r, p, rz = _pcg_step(matvec, precond, x, r, p, rz)
-    resid = float(torch.max(torch.abs(r * site_mask)))
+    resid = float(torch.max(torch.abs(r.detach() * site_mask)))
     return x, resid < tol_field, n_iters, r
 
 
@@ -110,12 +123,12 @@ def jacobi(matvec, b, damping, x0, max_iter, tol_field, site_mask):
     x = x0
     r = b - matvec(x)
     it = 0
-    resid = float(torch.max(torch.abs(r * site_mask)))  # host sync
+    resid = float(torch.max(torch.abs(r.detach() * site_mask)))  # host sync
     while resid >= tol_field and it < max_iter:
         x = x + damping * r
         r = b - matvec(x)
         it += 1
-        resid = float(torch.max(torch.abs(r * site_mask)))  # host sync
+        resid = float(torch.max(torch.abs(r.detach() * site_mask)))  # host sync
     return x, resid < tol_field, it, r
 
 
@@ -157,7 +170,7 @@ def adjoint_solve(matvec, diag, g, config: SCFConfig, x0=None):
     precond = lambda r: r * diag  # noqa: E731
     eps = torch.finfo(g.dtype).eps
     adj_tol = max(config.adjoint_tol, 40.0 * eps)
-    g_scale = max(float(torch.max(torch.abs(g))), 1e-30)
+    g_scale = max(float(torch.max(torch.abs(g.detach()))), 1e-30)
     ones = torch.ones_like(g[..., :1])
     if x0 is None:
         x0, r0 = torch.zeros_like(g), g
@@ -174,19 +187,68 @@ def adjoint_solve(matvec, diag, g, config: SCFConfig, x0=None):
     return w
 
 
+class _FixedOperator(torch.autograd.Function):
+    """A v at a fixed operator, differentiable in v without a graph through
+    the matvec: A is symmetric (the u-Hessian of the energy), so the VJP of
+    v -> A v is one more matvec of the cotangent. ``apply(v, matvec)``."""
+
+    @staticmethod
+    def forward(ctx, v, matvec):
+        ctx.matvec = matvec
+        return matvec(v)
+
+    @staticmethod
+    def backward(ctx, c):
+        return _FixedOperator.apply(c, ctx.matvec), None
+
+
+class _Refused(torch.autograd.Function):
+    """``apply(n, *outputs, *anchors)``: the ``n`` outputs, as they are,
+    differentiable through the anchors (the tensors they were computed
+    from), and a backward that raises: the outputs of a backward that
+    cannot be differentiated again. Taking the anchors as inputs puts this
+    node on every path from the outputs to what the anchors depend on, so
+    ``torch.autograd.grad`` meets it too, not only ``backward()``."""
+
+    @staticmethod
+    def forward(ctx, n, *xs):
+        return tuple(x.view_as(x) for x in xs[:n])
+
+    @staticmethod
+    def backward(ctx, *_):
+        raise RuntimeError(
+            "a derivative through the exact adjoint's host-checked solve: "
+            "set SCFConfig.adjoint_fixed_iters to differentiate its unrolled "
+            "adjoint, as admp_tpu's while_loop refuses reverse mode too")
+
+
+def _refuse_again(grads, anchors):
+    """``grads`` with each tensor replaced by a _Refused alias that depends
+    on ``anchors``: its derivative raises."""
+    at = [k for k, x in enumerate(grads) if x is not None]
+    out = _Refused.apply(len(at), *(grads[k] for k in at), *anchors)
+    grads = list(grads)
+    for k, x in zip(at, out):
+        grads[k] = x
+    return tuple(grads)
+
+
 class ImplicitSolve(torch.autograd.Function):
     """u* = u0 + A(theta)^-1 r0 with the exact implicit-function adjoint.
 
-    apply(r0, u0, pol, matvec_fn, config, info, rhs, w_init, *theta) ->
-    (u*, w). ``matvec_fn(v, theta, create_graph)`` returns A(theta) v;
-    ``rhs`` is b = -field(0) for the Jacobi method (else None); the forward
-    writes its diagnostics (converged, n_iter) into the dict ``info``. ``w``
-    is the pre-solved adjoint warm start under ``config.adjoint_warmstart``
-    (from ``w_init``), else zeros; it is not differentiable."""
+    apply(r0, u0, pol, matvec_fn, config, info, rhs, w_init, du_graph,
+    *theta) -> (u*, w). ``matvec_fn(v, theta, create_graph)`` returns
+    A(theta) v; ``rhs`` is b = -field(0) for the Jacobi method (else None);
+    the forward writes its diagnostics (converged, n_iter) into the dict
+    ``info``. ``w`` is the pre-solved adjoint warm start under
+    ``config.adjoint_warmstart`` (from ``w_init``), else zeros; it is not
+    differentiable. ``du_graph``: a differentiated backward keeps the graph
+    of u* - u0 in its theta path (the classic solve) instead of detaching
+    it (the external-r0 solve)."""
 
     @staticmethod
     def forward(ctx, r0, u0, pol, matvec_fn, config, info, rhs, w_init,
-                *theta):
+                du_graph, *theta):
         theta_d = [t.detach() for t in theta]
 
         def matvec(v):
@@ -201,44 +263,70 @@ class ImplicitSolve(torch.autograd.Function):
         else:
             w = torch.zeros_like(u)
         ctx.mark_non_differentiable(w)
-        ctx.save_for_backward(u, u0.detach(), pol.detach(), w, *theta_d)
-        ctx.matvec_fn, ctx.config = matvec_fn, config
+        # theta as given: a differentiated backward builds its theta path
+        # on them
+        ctx.save_for_backward(u, u0.detach(), pol.detach(), w, *theta)
+        ctx.matvec_fn, ctx.config, ctx.du_graph = matvec_fn, config, du_graph
         return u, w
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g, _g_w):
         u_star, u0, pol, w_pre, *theta = ctx.saved_tensors
-        config = ctx.config
+        delta_u = u_star - u0
+        graph = torch.is_grad_enabled()
+        if graph and ctx.config.adjoint_fixed_iters is not None:
+            return ImplicitSolve._adjoint(
+                ctx, g, delta_u if ctx.du_graph else delta_u.detach(), pol,
+                w_pre, theta)
+        with torch.no_grad():
+            grads = ImplicitSolve._adjoint(ctx, g, delta_u.detach(), pol,
+                                           w_pre, theta)
+        return _refuse_again(grads, [g, *theta]) if graph else grads
+
+    @staticmethod
+    def _adjoint(ctx, g, delta_u, pol, w_pre, theta):
+        """(w, None x 8, *theta_bar): w = A^-1 g from the adjoint solve at
+        detached theta and theta_bar = -vjp_theta[A(theta) delta_u](w), both
+        with the graph grad mode asks for."""
+        config, matvec_fn = ctx.config, ctx.matvec_fn
+        graph = torch.is_grad_enabled()
+        theta_d = [t.detach() for t in theta]
+
+        def matvec(v):
+            return matvec_fn(v, theta_d, False)
+
         diag, _ = preconditioner(pol, config)
-        w = adjoint_solve(lambda v: ctx.matvec_fn(v, theta, False), diag,
-                          g.detach(), config,
-                          x0=w_pre if config.adjoint_warmstart else None)
-        delta_u = (u_star - u0).detach()
+        w = adjoint_solve(
+            (lambda v: _FixedOperator.apply(v, matvec)) if graph else matvec,
+            diag, g, config, x0=w_pre if config.adjoint_warmstart else None)
+        needs = ctx.needs_input_grad[9:]
         with torch.enable_grad():
-            theta_r = [t.detach().requires_grad_(t.is_floating_point())
+            # an alias of each tensor of theta, so that each gets its own
+            # partial derivative; without a graph, detached leaves
+            theta_r = [t.view_as(t) if graph else
+                       t.detach().requires_grad_(t.is_floating_point())
                        for t in theta]
-            av = ctx.matvec_fn(delta_u, theta_r, True)
-            wanted = [t for t, need in zip(theta_r, ctx.needs_input_grad[8:])
-                      if need]
+            av = matvec_fn(delta_u, theta_r, True)
+            wanted = [t for t, need in zip(theta_r, needs) if need]
             grads = iter(torch.autograd.grad(av, wanted, grad_outputs=-w,
-                                             allow_unused=True)
+                                             allow_unused=True,
+                                             create_graph=graph)
                          if wanted else ())
-        theta_bar = [next(grads) if need else None
-                     for need in ctx.needs_input_grad[8:]]
-        return (w, None, None, None, None, None, None, None, *theta_bar)
+        theta_bar = [next(grads) if need else None for need in needs]
+        return (w, None, None, None, None, None, None, None, None, *theta_bar)
 
 
 def solve_implicit(r0, u0, pol, matvec_fn, config: SCFConfig, theta,
-                   rhs=None, w_init=None):
+                   rhs=None, w_init=None, du_graph=False):
     """Differentiable forward solve (exact adjoint); returns
     (u*, converged, n_iter, w), ``w`` the next adjoint warm start (zeros
-    unless ``config.adjoint_warmstart``; ``w_init`` defaults to zeros)."""
+    unless ``config.adjoint_warmstart``; ``w_init`` defaults to zeros).
+    ``du_graph``: see ``ImplicitSolve``."""
     info = {}
     if w_init is None:
         w_init = torch.zeros_like(u0)
     u, w = ImplicitSolve.apply(r0, u0, pol, matvec_fn, config, info, rhs,
-                               w_init.detach(), *theta)
+                               w_init.detach(), du_graph, *theta)
     return u, info["converged"], info["n_iter"], w
 
 
@@ -307,7 +395,10 @@ def make_induced_dipole_solver(field_fn, config: SCFConfig = SCFConfig(),
     in u). Under Feynman-Hellmann (``exact_adjoint=False``) u* comes back
     without a graph: the solve adds no gradient, where admp_tpu returns
     zeros. ``u_init``, ``w_init`` and ``pol`` get no gradient from the
-    solve. A third derivative through it raises (``ImplicitSolve``).
+    solve. Its gradient is differentiable again, with admp_tpu's semantics,
+    where ``config.adjoint_fixed_iters`` is set; with the host-checked
+    adjoint a derivative of it raises (``ImplicitSolve``). The matvec is
+    taken to be symmetric there, as the u-Hessian of an energy is.
     """
     if external_r0 and matvec_fn is None:
         raise ValueError("external_r0 requires matvec_fn")
@@ -353,7 +444,7 @@ def make_induced_dipole_solver(field_fn, config: SCFConfig = SCFConfig(),
             # admp_tpu's classic solve has no carried adjoint
             cfg = dataclasses.replace(config, adjoint_warmstart=False)
         return solve_implicit(r0, u0, pol, matvec, cfg, theta, rhs=rhs,
-                              w_init=w_init)
+                              w_init=w_init, du_graph=not external_r0)
 
     if external_r0:
         def solve_external(inputs, u_init, pol, r0, w_init):

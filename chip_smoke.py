@@ -5,10 +5,11 @@
 Phases (any failure exits nonzero; no phase failure is caught):
   0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      no CUDA device -> exit 1 before anything is printed as a result;
-  1. build the seven CUDA kernels (four libraries) from admp_tpu_torch/csrc
+  1. build the eight CUDA kernels (five libraries) from admp_tpu_torch/csrc
      into admp_tpu_torch/_build (nvcc, one process per source, concurrently);
   2. each kernel against its plain PyTorch version at the main path's shapes
-     (the pair HVP K3 for kinds pol, uu and perm, every output), and the
+     (the pair HVP K3 and its backward K3b, the pair energies' third
+     derivative, for kinds pol, uu and perm, every output), and the
      tiled spread and gather (K5, K7) at the 98k-atom shapes: (order 6, C=1)
      at 320^3 and 256^3 on the step's stencils, (4, 3) at 320^3 on random
      ones, and K5 on one crowded tile (more atoms than its stage holds) at
@@ -32,7 +33,15 @@ Phases (any failure exits nonzero; no phase failure is caught):
   3d. the trainer: 3 fitting.fit steps of energy matching on the exact-adjoint
      polarizable model (Q_local, pol, tholes) and of energy_force_loss on the
      fixed-multipole model (Q_local), B=2 each, kernel path against plain f32;
-     launch counts (K3 for perm);
+     launch counts (K3 for perm, K3b never); then force matching on the
+     polarizable exact-adjoint model with SCFConfig(adjoint_fixed_iters=n),
+     n the iterations the host-checked adjoint takes on the box at float32
+     (energy_force_loss at energy_weight 0, Q_local, pol and tholes started
+     5% off, the fixed model's float64 forces as targets, B=2): the first
+     step's parameter gradients on the kernels within 2x the plain f32
+     route's error + 1e-6 of plain f64, 3 steps on the kernels and on plain
+     f32 (losses within TOL_FIT, falling, finite), K3b launched for pol and
+     uu (per fit step logged), ms per fit step of both routes;
   3e. the full force field (bench.py's build_nonpol_workload): multipolar
      PME (lmax 2, non-polarizable, K=128^3, kappa pinned) + dispersion PME
      (pmax 10, disp_ethresh 2e-4, order-4 three-channel spread, K=128^3) +
@@ -166,7 +175,8 @@ Phases (any failure exits nonzero; no phase failure is caught):
      its plain version, its bound on the card and, where one exists, the one
      PyTorch call that computes the same function (at the 98k shapes too),
      and the host us per call of the launchers of K1-K6 (K4 beside one
-     torch.index_add, K6 beside one torch.take); for the ladder each mode's
+     torch.index_add, K6 beside one torch.take), K3b at the 'pol' and 'uu'
+     shapes (no one PyTorch call computes it); for the ladder each mode's
      ms/step (median of 3 x 10 drift steps, the DS rows 3 x 3), the 'ds' and
      'f64' reciprocal engines' energy+force at 128^3 with their force
      errors and host syncs (none allowed in the DS engine), the host syncs
@@ -179,12 +189,14 @@ Phases (any failure exits nonzero; no phase failure is caught):
     python3 chip_smoke.py --sharded
     python3 chip_smoke.py --scripts
     python3 chip_smoke.py --precision
+    python3 chip_smoke.py --fitting
 
 print only that last line, or only the exact-adjoint step's ms/step and
 profile, for the admp_tpu_torch in DIR (another commit's checkout, or .),
 so that two trees compare in one run on the card, or run only phases 1,
 3j and 3k (with 3j's keywords), or only phases 1 and 3l, or only phases
-1, 3m (with its phase 4) and 3n, and
+1, 3m (with its phase 4) and 3n, or only phases 1, K3b's part of 2, 3d and
+K3b's timing, and
 
     python3 chip_smoke.py --kernels DIR [DIR ...]
 
@@ -660,6 +672,57 @@ def check_hvp(w, record):
             record["_hvp_inputs"] = (x, ct, cs, lmax)
 
 
+THIRD_NAMES = ("x_gi", "x_gj", "x_scl", "x_scal", "x_ct", "x_cgi", "x_cgj",
+               "x_cscl", "x_cscal")
+
+
+def third_inputs(w, kind):
+    """K3b's inputs at the main path's shapes: the pair tables of ``kind``,
+    K3's cotangent ct and direction c, and the cotangents h of K3's outputs
+    (P.hvp_directions, and a standard-normal h_ct)."""
+    from admp_tpu_torch.ops.cuda import pairs as P
+
+    g_i, g_j, scl, scal, lmax = pair_inputs(w, kind)
+    x = (g_i, g_j, scl, scal)
+    rng = np.random.default_rng(3)
+    f32 = dict(device=g_i.device, dtype=torch.float32)
+    ct = torch.tensor(rng.uniform(0.5, 1.5, g_i.shape[0]), **f32)
+    cs = P.hvp_directions(x, kind, seed=5)
+    hs = P.hvp_directions(x, kind, seed=6)
+    hs.append(torch.tensor(rng.standard_normal(g_i.shape[0]), **f32))
+    return x, ct, cs, hs, lmax
+
+
+def check_third(w, record):
+    """K3b against pair_third_torch (float64 and float32, same inputs) at
+    the main path's shapes, every one of its nine outputs under K3's gate
+    (hvp_ok), for each kind it has a template for."""
+    from admp_tpu_torch.ops.cuda import pairs as P
+
+    record["_third_inputs"] = {}
+    for kind in ("pol", "uu", "perm"):
+        x, ct, cs, hs, lmax = third_inputs(w, kind)
+        out_k = P.launch_pair_third(*x, ct, *cs, *hs, lmax, kind)
+        out_64 = P.pair_third_torch(*(t.double() for t in (*x, ct, *cs, *hs)),
+                                    lmax, kind)
+        out_32 = P.pair_third_torch(*x, ct, *cs, *hs, lmax, kind)
+        torch.cuda.synchronize()
+        errs = {nm: hvp_ok(*t) for nm, *t in zip(THIRD_NAMES, out_k, out_32,
+                                                 out_64)}
+        log(f"pair third {kind:4s} C={x[0].shape[0]} F={x[0].shape[1]}: rel "
+            "RMSE vs plain f64, kernel / plain f32: "
+            + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}" for k, v in errs.items()))
+        for nm, a in zip(THIRD_NAMES, out_k):
+            require(bool(torch.isfinite(a).all()),
+                    f"pair third {kind} {nm} not finite")
+        for nm, (err_k, err_32, ok) in errs.items():
+            require(ok, f"pair third {kind} {nm} {err_k} (plain f32 {err_32})")
+        if kind == "pol":
+            record["pair_third"]["max_abs_err"] = max(
+                float((a - b).abs().max()) for a, b in zip(out_k, out_32))
+        record["_third_inputs"][kind] = (x, ct, cs, hs, lmax)
+
+
 def spread_inputs(w):
     """The energy mesh's stencil values (order 6, one channel)."""
     from admp_tpu_torch.ops.reciprocal import atom_spread_alpha, spread_points_separable
@@ -835,6 +898,8 @@ def main_path(w, record):
     require(all(launches[k] > 0 for k in ("pair_fwd", "pair_bwd", "spread",
                                           "gather")),
             "a kernel never launched")
+    require(launches["pair_hvp"] == launches["pair_third"] == 0,
+            "the MD step launched K3 or K3b")
     require(cold[1] and all(s[2] for s in steps), "SCF did not converge")
     require(cold[0] <= 10, f"cold iterations {cold[0]} > 10")
     require(all(s[1] <= 3 for s in steps), "warm iterations > 3")
@@ -896,10 +961,11 @@ def reset_counts():
     from admp_tpu_torch.ops.cuda import pairs as P, spread as S
 
     for c in (P.launch_pair_fwd, P.launch_pair_bwd, P.launch_pair_hvp,
-              S.launch_spread, S.launch_gather, S.launch_spread_tiled,
-              S.launch_gather_tiled):
+              P.launch_pair_third, S.launch_spread, S.launch_gather,
+              S.launch_spread_tiled, S.launch_gather_tiled):
         c.launches = 0
-    for c in (P.launch_pair_fwd, P.launch_pair_bwd, P.launch_pair_hvp):
+    for c in (P.launch_pair_fwd, P.launch_pair_bwd, P.launch_pair_hvp,
+              P.launch_pair_third):
         c.by_kind = dict.fromkeys(P.KINDS, 0)
     for c in (S.launch_spread, S.launch_gather, S.launch_spread_tiled,
               S.launch_gather_tiled):
@@ -913,11 +979,13 @@ def read_counts():
     return {"pair_fwd": P.launch_pair_fwd.launches,
             "pair_bwd": P.launch_pair_bwd.launches,
             "pair_hvp": P.launch_pair_hvp.launches,
+            "pair_third": P.launch_pair_third.launches,
             "spread": S.launch_spread.launches,
             "gather": S.launch_gather.launches,
             "pair_fwd_by_kind": dict(P.launch_pair_fwd.by_kind),
             "pair_bwd_by_kind": dict(P.launch_pair_bwd.by_kind),
             "pair_hvp_by_kind": dict(P.launch_pair_hvp.by_kind),
+            "pair_third_by_kind": dict(P.launch_pair_third.by_kind),
             "spread_by_shape": dict(S.launch_spread.by_shape),
             "gather_by_shape": dict(S.launch_gather.by_shape),
             "spread_tiled_by_shape": dict(S.launch_spread_tiled.by_shape),
@@ -948,6 +1016,7 @@ def adjoint_path(w, record):
     require(counts["pair_hvp_by_kind"]["pol"] > 0
             and counts["pair_hvp_by_kind"]["uu"] > 0,
             "K3 did not run for both pol and uu")
+    require(counts["pair_third"] == 0, "the exact-adjoint step launched K3b")
     require(cold[1] and all(s[2] for s in steps), "SCF did not converge")
     require(all(bool(torch.isfinite(s[0])) for s in steps)
             and bool(torch.isfinite(e0)) and bool(torch.isfinite(g0).all())
@@ -1067,10 +1136,14 @@ def fitting_path(w, record):
     runs["plain32"] = run("torch")
     log(f"phase 3d launches (kernel run): {counts}")
     require(counts["pair_hvp_by_kind"]["perm"] > 0, "K3 did not run for perm")
+    require(counts["pair_third"] == 0,
+            "the energy fit or the fixed-model force fit launched K3b")
     require(all(counts[k] > 0 for k in ("pair_fwd", "pair_bwd", "pair_hvp",
                                         "spread", "gather")),
             "a kernel never launched on the fitting path")
-    record["pair_hvp"]["launches"] += counts["pair_hvp"]
+    record["pair_hvp"]["launches"] = (record["pair_hvp"].get("launches", 0)
+                                      + counts["pair_hvp"])
+    record["pair_third"]["launches"] = counts["pair_third"]
     times = {}
     for k, label in enumerate(("energy matching, polarizable exact adjoint",
                                "energy_force_loss, fixed multipoles")):
@@ -1084,7 +1157,132 @@ def fitting_path(w, record):
         require(lk[-1] < lk[0], f"fit {label}: the loss did not fall")
         require(all(abs(a - b) <= TOL_FIT * abs(b) for a, b in zip(lk, lp)),
                 f"fit {label}: kernel and plain losses differ")
+    times.update(pol_force_fit(w, record, targets))
     return times
+
+
+def adjoint_iterations(w):
+    """The PCG iterations of the host-checked adjoint (SCFConfig()) on the
+    main path's box at float32 on the kernels, cold: the matvecs of one
+    energy+force call without a graph, less the forward's."""
+    from admp_tpu_torch import SCFConfig
+
+    dev = w["positions"].device
+    force = make_force(w, True, dev, torch.float32, "auto", scf=SCFConfig())
+    calls = []
+    make = force._matvec_fn
+
+    def counting(pairs):
+        inner = make(pairs)
+
+        def matvec(v, theta, create_graph):
+            calls.append(create_graph)
+            return inner(v, theta, create_graph)
+
+        return matvec
+
+    force._matvec_fn = counting
+    force.get_forces(*pol_args(w, w["positions"], torch.float32))
+    return calls.count(False) - force.n_cycle, force.n_cycle
+
+
+def pol_force_fit(w, record, targets):
+    """Phase 3d's force-matching fit on the polarizable exact-adjoint
+    potential: SCFConfig(adjoint_fixed_iters=n), n the iterations of the
+    host-checked adjoint on this box at float32, so that the loss's
+    gradient takes the pair energies' third derivative (K3b, 'pol' and
+    'uu'). Fits Q_local, pol and tholes (started 5% off) to the float64
+    forces of the fixed potential (``targets``, B=2) with energy_force_loss
+    at energy_weight 0 (force matching alone: the whole gradient takes the
+    third derivative), N_FIT_STEPS steps on the kernels and on plain f32;
+    the first step's gradients on the kernels within 2x the plain f32
+    route's error + 1e-6 of the plain f64 route's. Returns the per-step
+    times (ms) of each run."""
+    from admp_tpu_torch import SCFConfig, energy_force_loss, fit, stack_batch
+    from admp_tpu_torch.fitting import adam
+
+    dev = w["positions"].device
+    n_adj, n_fwd = adjoint_iterations(w)
+    scf = SCFConfig(adjoint_fixed_iters=max(n_adj, 1))
+    log(f"phase 3d force fit: the host-checked adjoint takes {n_adj} PCG "
+        f"iterations on the 3000-atom box at float32 (forward {n_fwd}): "
+        f"{scf}")
+    sc = w["scales"]
+    true = {"q": w["q_local"], "pol": w["pol"], "tholes": w["tholes"]}
+    names = tuple(true)
+
+    def potential_of(method, dtype):
+        force = make_force(w, True, dev, dtype, method, scf=scf)
+        scales = sc.to(dtype)
+
+        def potential(positions, box, pairs, params):
+            return force.get_energy(positions, box, pairs, params["q"],
+                                    params["pol"], params["tholes"], scales,
+                                    scales, scales)
+
+        return potential
+
+    def batch_of(dtype):
+        return stack_batch([tuple(t.to(dtype) if t.is_floating_point() else t
+                                  for t in (p, b, pr, torch.as_tensor(e), f))
+                            for p, b, pr, e, f in targets])
+
+    # the first step's parameter gradients, cold, on the three routes
+    grads = {}
+    for route, method, dtype in (("kernel", "auto", torch.float32),
+                                 ("plain32", "torch", torch.float32),
+                                 ("plain64", "torch", torch.float64)):
+        params = {k: (1.05 * v).to(dtype).requires_grad_(True)
+                  for k, v in true.items()}
+        loss = energy_force_loss(potential_of(method, dtype),
+                                 energy_weight=0.0)(params, batch_of(dtype))
+        grads[route] = torch.autograd.grad(loss, list(params.values()))
+    for nm, g_k, g_32, g_64 in zip(names, *grads.values()):
+        err_k, err_32 = rel_rmse(g_k, g_64), rel_rmse(g_32, g_64)
+        log(f"force fit first step d loss/d{nm}: kernel f32 vs plain f64 rel "
+            f"RMSE {err_k:.3e}, plain f32 vs plain f64 {err_32:.3e}")
+        require(bool(torch.isfinite(g_k).all()), f"d loss/d{nm} not finite")
+        require(err_k <= 2 * err_32 + 1e-6,
+                f"force fit d loss/d{nm} {err_k} > 2 x {err_32} + 1e-6")
+
+    def run(method):
+        start = {k: 1.05 * v for k, v in true.items()}
+        return fit(energy_force_loss(potential_of(method, torch.float32),
+                                     energy_weight=0.0),
+                   start, [batch_of(torch.float32)] * N_FIT_STEPS,
+                   optimizer=adam(FIT_LR), log_every=0)
+
+    reset_counts()
+    runs = {"kernel": run("auto")}
+    counts = read_counts()
+    runs["plain32"] = run("torch")
+    per_step = {k: v / N_FIT_STEPS for k, v in
+                counts["pair_third_by_kind"].items()}
+    log(f"phase 3d force fit launches (kernel run): {counts}; K3b per fit "
+        f"step: {per_step}")
+    require(counts["pair_third_by_kind"]["pol"] > 0
+            and counts["pair_third_by_kind"]["uu"] > 0,
+            "K3b did not run for both pol and uu")
+    require(all(counts[k] > 0 for k in ("pair_fwd", "pair_bwd", "pair_hvp",
+                                        "spread", "gather")),
+            "a kernel never launched on the force-matching fit")
+    record["pair_third"]["launches"] += counts["pair_third"]
+    record["pair_third"]["launches_per_fit_step"] = per_step
+    label = ("force matching, polarizable exact adjoint "
+             f"(adjoint_fixed_iters={scf.adjoint_fixed_iters})")
+    lk = [h["loss"] for h in runs["kernel"].history]
+    lp = [h["loss"] for h in runs["plain32"].history]
+    log(f"fit ({label}): kernel losses {lk}, plain f32 losses {lp}")
+    require(all(np.isfinite(lk)) and all(np.isfinite(lp)),
+            f"fit {label}: non-finite loss")
+    require(all(bool(torch.isfinite(v).all())
+                for r in runs.values() for v in r.params.values()),
+            f"fit {label}: non-finite parameters")
+    require(lk[-1] < lk[0], f"fit {label}: the loss did not fall")
+    require(all(abs(a - b) <= TOL_FIT * abs(b) for a, b in zip(lk, lp)),
+            f"fit {label}: kernel and plain losses differ")
+    return {label: {m: [1e3 * h["dt"] for h in runs[m].history]
+                    for m in runs}}
 
 
 def make_ff(w, device, dtype, method, **keywords):
@@ -3384,7 +3582,8 @@ def sharded_path(w, w98, record, card):
             "fullff_P1": ff1["launches"][name],
             **{f"{kind}_P{n}_rank0": by_p[n][0][kind]["launches"][name]
                for n in SHARD_PS for kind in ("pol", "ff")}}
-    for name in ("spread_c3", "gather_c3", "spread_tiled", "gather_tiled"):
+    for name in ("pair_third", "spread_c3", "gather_c3", "spread_tiled",
+                 "gather_tiled"):
         record[name]["sharded_launches"] = {}
 
 
@@ -3427,6 +3626,7 @@ def script_launches(counts):
                             if (ch == 1) == (c == 1))
     return {"pair_fwd": counts["pair_fwd"], "pair_bwd": counts["pair_bwd"],
             "pair_hvp": counts["pair_hvp"],
+            "pair_third": counts["pair_third"],
             "spread": by("spread_by_shape", 1),
             "gather": by("gather_by_shape", 1),
             "spread_c3": by("spread_by_shape", 3),
@@ -4254,6 +4454,7 @@ def time_kernels(record):
             bound(2 * nbytes(*x, hct) + nbytes(*cs), count_ops(
                 lambda: P.pair_hvp_torch(*hx, h_hct, *hcs, hl, "pol")))),
     }
+    calls.update(third_calls(record.pop("_third_inputs")))
     m_u0, q, g_mesh = record.pop("_spread_inputs")
     calls.update(spread_calls(m_u0, q, g_mesh, 6))
     m3, q3, g3, order3 = record.pop("_spread_c3_inputs")
@@ -4262,11 +4463,43 @@ def time_kernels(record):
     m98, q98, g98 = record.pop("_tiled_inputs")
     calls.update(tiled_calls(m98, q98, g98, 6))
     for name, (kernel, plain, library, (b_ms, b_by)) in calls.items():
-        r = record[name]
+        r = record.setdefault(name, {})
         r["ms"], r["device_ms"] = cuda_time_ms(kernel)
         r["plain_ms"], r["plain_device_ms"] = cuda_time_ms(plain)
         r["library_ms"] = cuda_time_ms(library)[0] if library else None
         r["bound_ms"], r["bound_by"] = b_ms, b_by
+    # K3b at the 'uu' shapes: logged, its record row is 'pol'
+    r = record.pop("pair_third_uu")
+    log(f"  pair_third (uu): kernel {r['ms']:.4f} ms/call ({r['device_ms']:.4f}"
+        f" ms device), plain {r['plain_ms']:.4f} ms/call "
+        f"({r['plain_device_ms']:.4f} ms device), bound {r['bound_ms']:.4f} ms"
+        f" ({r['bound_by']})")
+
+
+def third_calls(inputs):
+    """K3b's (kernel, plain, library, bound) at the 'pol' and 'uu' shapes of
+    the main path: it reads its 14 inputs once and writes its 9 outputs
+    once; its operations are those of the plain version (counted on the
+    host). No single PyTorch call computes it."""
+    from admp_tpu_torch.ops.cuda import pairs as P
+
+    calls = {}
+    for kind, name in (("pol", "pair_third"), ("uu", "pair_third_uu")):
+        x, ct, cs, hs, lmax = inputs[kind]
+        args = (*x, ct, *cs, *hs)
+        host = [t.detach().cpu() for t in args]
+        outs = nbytes(*x, ct, *cs)  # the nine outputs' shapes
+        log(f"  pair_third ({kind}): byte bound "
+            f"{(nbytes(*args) + outs) / HBM_BYTES_S * 1e3:.4f} ms "
+            f"({nbytes(*args) + outs} B over {HBM_BYTES_S:.3g} B/s)")
+        calls[name] = (
+            lambda a=args, k=kind, lm=lmax: P.launch_pair_third(*a, lm, k),
+            lambda a=args, k=kind, lm=lmax: P.pair_third_torch(*a, lm, k),
+            None,
+            bound(nbytes(*args) + outs, count_ops(
+                lambda h=host, k=kind, lm=lmax: P.pair_third_torch(*h, lm,
+                                                                   k))))
+    return calls
 
 
 def adjoint_step_only(dev, card, tag):
@@ -4335,7 +4568,8 @@ def main():
     # --kernels DIR [DIR ...]: only the device times of K2-K7,
     # this tree's beside each DIR's in one process
     # --sharded: only phases 1, 3j and 3k; --scripts: only phases 1 and 3l;
-    # --precision: only phases 1, 3m and 3n
+    # --precision: only phases 1, 3m and 3n; --fitting: only phase 1, K3b
+    # against its plain version, phase 3d and K3b's times
     mode = sys.argv[1] if len(sys.argv) > 1 else None
     other = sys.argv[2] if mode in ("--launchers", "--adjoint") else None
     sys.path.insert(0, other or str(ROOT))
@@ -4378,6 +4612,10 @@ def main():
                          replaces="admp_tpu/ops/pallas/pairs.py:343"),
         "pair_hvp": dict(source="admp_tpu_torch/csrc/pair_hvp.cu",
                          replaces="admp_tpu/ops/pallas/pairs.py:445"),
+        # no TPU kernel: the VJP of K3's custom_vjp rule (_pair_bwd_op_bwd),
+        # which admp_tpu has not; it takes this derivative on XLA only
+        "pair_third": dict(source="admp_tpu_torch/csrc/pair_third.cu",
+                           replaces="admp_tpu/ops/pallas/pairs.py:569"),
         "spread": dict(source="admp_tpu_torch/csrc/spread.cu",
                        replaces="admp_tpu/ops/pallas/spread.py:210"),
         "gather": dict(source="admp_tpu_torch/csrc/spread.cu",
@@ -4403,6 +4641,24 @@ def main():
         scripts_path(record, card)
         log("phase 3l: the user's scripts ok")
         return 0
+    if mode == "--fitting":
+        check_third(w, record)
+        fit_times = fitting_path(w, record)
+        for label, t in fit_times.items():
+            log(f"phase 3d [{card}]: fit step ({label}): kernel "
+                f"{statistics.median(t['kernel'][1:]):.3f} ms/step "
+                f"({[round(v, 3) for v in t['kernel']]}), plain f32 "
+                f"{statistics.median(t['plain32'][1:]):.3f} ms/step "
+                f"({[round(v, 3) for v in t['plain32']]})")
+        for name, (kernel, plain, _, (b_ms, b_by)) in third_calls(
+                record.pop("_third_inputs")).items():
+            ms_k, dev_k = cuda_time_ms(kernel)
+            ms_p, dev_p = cuda_time_ms(plain)
+            log(f"  [{card}] {name}: kernel {ms_k:.4f} ms/call ({dev_k:.4f} "
+                f"ms device), plain {ms_p:.4f} ms/call ({dev_p:.4f} ms "
+                f"device), bound {b_ms:.4f} ms ({b_by})")
+        log("phase 3d: trainer ok")
+        return 0
     if mode == "--precision":
         pol_forces, pol_prec = pol_ladder_path(w)
         time_pol_ladder(pol_forces, w, card, pol_prec)
@@ -4416,6 +4672,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     check_pairs(w, record)
     check_hvp(w, record)
+    check_third(w, record)
     check_spread(w, record)
     check_spread_c3(w, record)
     check_spread_rows(dev)

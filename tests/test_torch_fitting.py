@@ -1,7 +1,8 @@
 """The port's fitting path: fitting.fit with torch.optim, checkpoint.py, and
 the conversion of an optax fit (convert.convert_params,
 convert.adam_state_from_optax), against admp_tpu at float64 where admp_tpu
-has the counterpart; and the exact adjoint's refusal of a third derivative.
+has the counterpart; and the host-checked exact adjoint's refusal of a third
+derivative.
 """
 
 import jax
@@ -150,13 +151,17 @@ def _pol_potential(scf):
 
 def test_force_matching_through_exact_adjoint_raises():
     """A force-matching loss on a polarizable exact-adjoint potential needs
-    the third derivative through the implicit solve, which the port refuses
-    (scf/solver.ImplicitSolve.backward is once_differentiable), as admp_tpu
-    refuses reverse mode through its adjoint while_loop. Under the
-    Feynman-Hellmann profile the solve is cut and the loss differentiates."""
+    the third derivative through the implicit solve. Under SCFConfig() the
+    adjoint solve is the host-checked loop, whose iterates carry no graph,
+    so the port refuses it (scf/solver.ImplicitSolve's differentiated
+    backward raises, naming adjoint_fixed_iters), as admp_tpu refuses
+    reverse mode through its adjoint while_loop; with adjoint_fixed_iters
+    set both differentiate the unrolled adjoint
+    (tests/test_torch_third_order.py). Under the Feynman-Hellmann profile
+    the solve is cut and the loss differentiates."""
     potential, params, batch = _pol_potential(SCFConfig())
     loss = energy_force_loss(potential)(params, batch)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
+    with pytest.raises(RuntimeError, match="adjoint_fixed_iters"):
         loss.backward()
     potential, params, batch = _pol_potential(SCFConfig.md())
     energy_force_loss(potential)(params, batch).backward()

@@ -31,7 +31,10 @@ another device; K4 at N = 0 (zeros) and through its C entry into a mesh filled w
 NaN (the entry zeroes its mesh). K3 on all seven (kind, lmax). K2 and K3
 also on tables crafted onto each branch of the pair energy (degenerate
 pairs, the frame guard, masked pairs, zero-pol sites, the pscale sigmoid,
-the Thole cut). The precision modes: the double-single arithmetic, FFTs and
+the Thole cut). K3b, K3's backward (the pair energies' third derivative),
+at the 3000-atom pair count for 'pol' and 'uu' against the plain third
+derivative in float64 under K3's gate, and through autograd on all three
+kinds (a fourth derivative raises). The precision modes: the double-single arithmetic, FFTs and
 engine (plain PyTorch operations, where a fused multiply-add or a flush to
 zero would break the error-free transforms) against float64 with admp_tpu's
 bounds (tests/test_ds.py), the DS mesh's quantized pass the same bits in any
@@ -94,8 +97,8 @@ def _system(dev, n_side=4):
     return s, pos, box, q, qg, pairs
 
 
-def _tables(dev, kind, lmax):
-    s, pos, box, _, qg, pairs = _system(dev)
+def _tables(dev, kind, lmax, n_side=4):
+    s, pos, box, _, qg, pairs = _system(dev, n_side)
     n = pos.shape[0]
     i, j, mask = _pair_indices(pairs, n)
     cov = torch.as_tensor(s["covalent_map"], device=dev).long()
@@ -248,8 +251,9 @@ def _directions(tables, seed, kind):
 @pytest.mark.parametrize("kind,lmax", [("perm", 2), ("pol", 2), ("uu", 1)])
 def test_pair_kernel_autograd_is_first_order(dev, kind, lmax):
     """The pair kernels' autograd: the backward's backward (K3) matches the
-    plain version, agrees with a central difference of the backward (K2),
-    and is itself first order (a third derivative raises)."""
+    plain version and agrees with a central difference of the backward
+    (K2); K3's own backward (K3b) gives the plain third derivative, and is
+    itself first order (a fourth derivative raises)."""
     g_i, g_j, scl, scal, ct = _tables(dev, kind, lmax)
     cs = P.hvp_directions((g_i, g_j, scl, scal), kind, seed=5)
     out_k = P.launch_pair_hvp(g_i, g_j, scl, scal, ct, *cs, lmax, kind)
@@ -289,8 +293,47 @@ def test_pair_kernel_autograd_is_first_order(dev, kind, lmax):
                               leaves, create_graph=True)
     for a, b in zip(hvp, out_k[:4]):
         assert torch.equal(a, b)
+    before = P.launch_pair_third.by_kind[kind]
+    third = torch.autograd.grad(hvp[0].sum(), leaves, create_graph=True)
+    assert P.launch_pair_third.by_kind[kind] - before == 1
+    h = [torch.ones_like(g_i), torch.zeros_like(g_j), torch.zeros_like(scl),
+         torch.zeros_like(scal), torch.zeros_like(ct)]
+    t_64 = P.pair_third_torch(*(t.double() for t in (*x, ct, *cs, *h)),
+                              lmax, kind)
+    t_32 = P.pair_third_torch(*x, ct, *cs, *h, lmax, kind)
+    for name, a, b, c in zip(("g_i", "g_j", "scl", "scal"), third, t_32, t_64):
+        assert bool(torch.isfinite(a).all()), name
+        tol = max(1e-4, 2 * _rel(b, c))
+        assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
     with pytest.raises(RuntimeError):
-        torch.autograd.grad(hvp[0].sum(), leaves[0])
+        torch.autograd.grad(third[0].sum(), leaves[0])
+
+
+@pytest.mark.parametrize("kind,lmax", [("pol", 2), ("uu", 2)])
+def test_pair_third_matches_plain_f64(dev, kind, lmax):
+    """K3b (K2's mixed-mode body in hyper-duals) at the 3000-atom box's pair
+    count (water_system(n_side=10), the main path's pairs) against the plain
+    third derivative in float64 on the same inputs, each of its nine outputs
+    within K3's gate, max(1e-4, 2 x the plain float32 version's error); one
+    launch, counted for its kind."""
+    *x, ct = _tables(dev, kind, lmax, n_side=10)
+    cs = P.hvp_directions(x, kind, seed=7)
+    hs = P.hvp_directions(x, kind, seed=8)
+    hs.append(torch.tensor(np.random.default_rng(9).standard_normal(
+        ct.shape[0]), device=dev, dtype=torch.float32))
+    before = P.launch_pair_third.by_kind[kind]
+    out_k = P.launch_pair_third(*x, ct, *cs, *hs, lmax, kind)
+    assert P.launch_pair_third.by_kind[kind] - before == 1
+    f64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+    out_64 = P.pair_third_torch(*f64((*x, ct, *cs, *hs)), lmax, kind)
+    out_32 = P.pair_third_torch(*x, ct, *cs, *hs, lmax, kind)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("g_i", "g_j", "scl", "scal", "ct", "c_gi",
+                              "c_gj", "c_scl", "c_scal"), out_k, out_32,
+                             out_64):
+        assert bool(torch.isfinite(a).all()), name
+        tol = max(1e-4, 2 * _rel(b, c))
+        assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
 
 
 @pytest.mark.parametrize("order,channels", [(6, 1), (4, 1), (6, 3), (4, 3)])

@@ -9,7 +9,14 @@ every output within 1e-5 relative RMSE (the card's gate), for all seven
 branch of the pair energy. Its S = Dual1 instantiation, K3's body (the
 derivatives of its outputs along a direction), is held against the plain
 HVP in float64 within max(1e-4, 2 x the plain float32 HVP's error), K3's own
-gate, on both sets of tables. Skips where no C++ compiler is found.
+gate, on both sets of tables. Its S = Hyper instantiation
+(``pair_grad_parts``), K3b's body (the VJP of K3), is held against the
+plain third derivative ``pair_third_torch`` in float64 under the same gate,
+on both sets of tables, with both directions also kept off the Thole
+columns of the sites of pol 1e-9 (the third derivative of the damping width
+(pol_i pol_j)^(1/6) there is beyond float32's range in any implementation,
+and the plain float32 version's own error is taken over its finite
+entries). Skips where no C++ compiler is found.
 """
 
 import ctypes
@@ -17,6 +24,7 @@ import pathlib
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -79,6 +87,51 @@ int grad_any(int kind, int lmax, const float* gi, const float* gj, const float* 
     case 3: grad<kPol, 0, S>(ARGS); return 0;
     case 4: grad<kPol, 1, S>(ARGS); return 0;
     case 5: grad<kPol, 2, S>(ARGS); return 0;
+  }
+  return -1;
+#undef ARGS
+}
+// K3b's body: both output parts, the scalar sums of part J at dscal[19 J]
+template <int KIND, int LMAX>
+void third(const float* gi, const float* gj, const float* scl, const float* scal,
+           const float* ct, const float* cgi, const float* cgj, const float* cscl,
+           const float* cscal, const float* hgi, const float* hgj, const float* hscl,
+           const float* hscal, const float* hct, float* dgi, float* dgj, float* dscl,
+           float* dct, float* dcgi, float* dcgj, float* dcscl, float* dscal, int C) {
+  constexpr int F = Layout<KIND, LMAX>::F;
+  for (int k = 0; k < 2 * kNScal; ++k) dscal[k] = 0.f;
+  for (int p = 0; p < C; ++p) {
+    float sg[2][kNScal] = {{0}};
+    const size_t r = static_cast<size_t>(p) * F;
+    float* const oi[2] = {dgi + r, dcgi + r};
+    float* const oj[2] = {dgj + r, dcgj + r};
+    float* const os[2] = {dscl, dcscl};
+    pair_grad_parts<KIND, LMAX, Hyper>(p, C, gi + r, gj + r, scl, scal, ct, cgi + r, cgj + r,
+                                       cscl, cscal, hgi + r, hgj + r, hscl, hscal, hct, oi,
+                                       oj, os, dct, sg);
+    for (int k = 0; k < kNScal; ++k) {
+      dscal[k] += sg[0][k];
+      dscal[kNScal + k] += sg[1][k];
+    }
+  }
+}
+extern "C" int host_pair_third(int kind, int lmax, const float* gi, const float* gj,
+                               const float* scl, const float* scal, const float* ct,
+                               const float* cgi, const float* cgj, const float* cscl,
+                               const float* cscal, const float* hgi, const float* hgj,
+                               const float* hscl, const float* hscal, const float* hct,
+                               float* dgi, float* dgj, float* dscl, float* dct, float* dcgi,
+                               float* dcgj, float* dcscl, float* dscal, int C) {
+#define ARGS gi, gj, scl, scal, ct, cgi, cgj, cscl, cscal, hgi, hgj, hscl, hscal, hct, dgi, \
+             dgj, dscl, dct, dcgi, dcgj, dcscl, dscal, C
+  if (kind == kUU) { third<kUU, 0>(ARGS); return 0; }
+  switch (kind * 3 + lmax) {
+    case 0: third<kPerm, 0>(ARGS); return 0;
+    case 1: third<kPerm, 1>(ARGS); return 0;
+    case 2: third<kPerm, 2>(ARGS); return 0;
+    case 3: third<kPol, 0>(ARGS); return 0;
+    case 4: third<kPol, 1>(ARGS); return 0;
+    case 5: third<kPol, 2>(ARGS); return 0;
   }
   return -1;
 #undef ARGS
@@ -174,3 +227,56 @@ def test_pair_backward_body_in_dual_arithmetic_gives_the_hvp(host_lib, kind,
 @pytest.mark.parametrize("kind,lmax", KINDS)
 def test_pair_hvp_body_on_the_plain_tables(host_lib, kind, lmax):
     _hold_dual_body(host_lib, kind, lmax, "plain")
+
+
+def _third_directions(tables, kind, seed):
+    """K3b's two directions: P.hvp_directions for K3's (c) and for its
+    cotangents (h, with a standard-normal h_ct), each also zero on the Thole
+    columns of the sites of pol below 1e-6."""
+    x = tables[:4]
+    cs = P.hvp_directions(x, kind, seed=seed)
+    hs = P.hvp_directions(x, kind, seed=seed + 1)
+    hs.append(torch.tensor(np.random.default_rng(seed + 2).standard_normal(
+        x[0].shape[0]), dtype=torch.float32))
+    if kind != "perm":
+        for d in (cs, hs):
+            for g, c in zip(x[:2], d[:2]):
+                c[g[:, -2] < 1e-6, -2:] = 0.0
+    return cs, hs
+
+
+def _host_third(lib, tables, cs, hs, lmax, kind):
+    """The cotangents of K3's nine inputs from the host K3b body."""
+    g_i, g_j, scl, scal, ct = tables
+    out = [torch.empty_like(g_i), torch.empty_like(g_j), torch.empty_like(scl),
+           torch.empty_like(ct), torch.empty_like(g_i), torch.empty_like(g_j),
+           torch.empty_like(scl), torch.empty(2 * P.N_SCAL)]
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    status = lib.host_pair_third(P.KINDS[kind], lmax,
+                                 *map(ptr, (g_i, g_j, scl, scal, ct, *cs, *hs,
+                                            *out)), g_i.shape[0])
+    assert status == 0
+    d_gi, d_gj, d_scl, d_ct, d_cgi, d_cgj, d_cscl, d_scal = out
+    return (d_gi, d_gj, d_scl, d_scal[:P.N_SCAL], d_ct, d_cgi, d_cgj, d_cscl,
+            d_scal[P.N_SCAL:])
+
+
+@pytest.mark.parametrize("which", ["plain", "branches"])
+@pytest.mark.parametrize("kind,lmax", KINDS)
+def test_pair_third_body_in_hyper_dual_arithmetic(host_lib, kind, lmax, which):
+    tables = _tables_of(which, kind, lmax)
+    cs, hs = _third_directions(tables, kind, seed=5)
+    out_k = _host_third(host_lib, tables, cs, hs, lmax, kind)
+    f64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+    out_64 = P.pair_third_torch(*f64(tables), *f64(cs), *f64(hs), lmax, kind)
+    out_32 = P.pair_third_torch(*tables, *cs, *hs, lmax, kind)
+    names = ("g_i", "g_j", "scl", "scal", "ct", "c_gi", "c_gj", "c_scl",
+             "c_scal")
+    for name, a, b, c in zip(names, out_k, out_32, out_64):
+        assert bool(torch.isfinite(a).all()), name
+        ok = torch.isfinite(b)
+        tol = max(1e-4, 2 * _rel(b[ok], c[ok]))
+        assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
+    masked = tables[2][1] <= 0.5
+    for k in (0, 1, 5, 6):  # a masked pair's rows
+        assert bool((out_k[k][masked] == 0).all())

@@ -1,7 +1,7 @@
 """The pair launchers' one-pass validation (admp_tpu_torch/ops/cuda/pairs.py).
 
 Each launcher (K1 ``launch_pair_fwd``, K2 ``launch_pair_bwd``, K3
-``launch_pair_hvp``) raises ValueError before it builds or launches
+``launch_pair_hvp``, K3b ``launch_pair_third``) raises ValueError before it builds or launches
 anything on tables its kernel cannot take: a kind or lmax it has no template
 for, a wrong shape, a CPU tensor, float64 or a non-contiguous table. The
 error names the first failure, in the order kind, lmax, then each table in
@@ -32,8 +32,11 @@ def _launch(launcher, g_i, g_j, scl, scal, ct, lmax, kind):
         return P.launch_pair_fwd(g_i, g_j, scl, scal, lmax, kind)
     if launcher == "bwd":
         return P.launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
-    return P.launch_pair_hvp(g_i, g_j, scl, scal, ct, g_i, g_j, scl, scal,
-                             lmax, kind)
+    if launcher == "hvp":
+        return P.launch_pair_hvp(g_i, g_j, scl, scal, ct, g_i, g_j, scl, scal,
+                                 lmax, kind)
+    return P.launch_pair_third(g_i, g_j, scl, scal, ct, g_i, g_j, scl, scal,
+                               g_i, g_j, scl, scal, ct, lmax, kind)
 
 
 def _strided(x):
@@ -61,7 +64,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("launcher", ["fwd", "bwd", "hvp"])
+@pytest.mark.parametrize("launcher", ["fwd", "bwd", "hvp", "third"])
 def test_pair_launcher_refuses_what_its_kernel_cannot_take(launcher, case):
     change, words = CASES[case]
     fn = getattr(P, f"launch_pair_{launcher}")

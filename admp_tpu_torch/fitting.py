@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from admp_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+from admp_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -147,11 +148,13 @@ def fit(
     for _ in range(n_epochs):
         for batch in batches:
             t0 = time.perf_counter()
-            opt.zero_grad(set_to_none=True)
-            loss = loss_fn(params, batch)
-            loss.backward()
-            opt.step()
-            loss = float(loss.detach())  # waits for the step: dt is its full time
+            with profiling.span("fit.step", composite=True):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(params, batch)
+                loss.backward()
+                opt.step()
+                # waits for the step: dt is its full time
+                loss = profiling.host_sync("fit.loss", float, loss.detach())
             step += 1
             history.append({"step": step, "loss": loss,
                             "dt": time.perf_counter() - t0})

@@ -25,6 +25,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.linalg3 import det3x3
 
 # a [A/ps^2] = F [kJ/mol/A] / m [g/mol] * _ACC
@@ -51,11 +52,14 @@ def make_nve_step(force_fn, masses, dt: float):
     (energy, forces, aux')``."""
     m = masses[:, None]
 
+    @profiling.traced("md.step", composite=True)
     def step(state: MDState):
-        v_half = state.velocities + 0.5 * dt * _ACC * state.forces / m
-        x_new = state.positions + dt * v_half
+        with profiling.span("md.integrate"):
+            v_half = state.velocities + 0.5 * dt * _ACC * state.forces / m
+            x_new = state.positions + dt * v_half
         _, f_new, aux = force_fn(x_new, state.aux)
-        v_new = v_half + 0.5 * dt * _ACC * f_new / m
+        with profiling.span("md.integrate"):
+            v_new = v_half + 0.5 * dt * _ACC * f_new / m
         return MDState(x_new, v_new, f_new, aux)
 
     return step
@@ -70,15 +74,18 @@ def make_langevin_step(force_fn, masses, dt: float, temperature: float,
     c1 = math.exp(-friction * dt)
     sigma = torch.sqrt(K_B * temperature * (1.0 - c1 ** 2) / m * _ACC)
 
+    @profiling.traced("md.step", composite=True)
     def step(state: MDState, generator):
-        v = state.velocities + 0.5 * dt * _ACC * state.forces / m
-        x = state.positions + 0.5 * dt * v
-        noise = torch.randn(v.shape, generator=generator, dtype=v.dtype,
-                            device=v.device)
-        v = c1 * v + sigma * noise
-        x = x + 0.5 * dt * v
+        with profiling.span("md.integrate"):
+            v = state.velocities + 0.5 * dt * _ACC * state.forces / m
+            x = state.positions + 0.5 * dt * v
+            noise = torch.randn(v.shape, generator=generator, dtype=v.dtype,
+                                device=v.device)
+            v = c1 * v + sigma * noise
+            x = x + 0.5 * dt * v
         _, f_new, aux = force_fn(x, state.aux)
-        v = v + 0.5 * dt * _ACC * f_new / m
+        with profiling.span("md.integrate"):
+            v = v + 0.5 * dt * _ACC * f_new / m
         return MDState(x, v, f_new, aux)
 
     return step

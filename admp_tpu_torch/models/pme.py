@@ -57,14 +57,15 @@ from admp_tpu_torch.ops.exclusions import (
     lookup_topology_distance,
     scale_for_distance,
 )
-from admp_tpu_torch.ops.frames import local_frames_components
-from admp_tpu_torch.ops.harmonics import cart_dipole_to_harm, rot_local2global_components
+from admp_tpu_torch.ops.frames import global_multipoles
+from admp_tpu_torch.ops.harmonics import cart_dipole_to_harm
 from admp_tpu_torch.ops.influence import ck_1
 from admp_tpu_torch.ops.neighborlist import NeighborList
 from admp_tpu_torch.ops.reciprocal import make_pme_recip
 from admp_tpu_torch.ops.selfenergy import pme_self_energy, polarization_penalty
 from admp_tpu_torch.scf import solver
 from admp_tpu_torch.settings import EngineConfig, SCFConfig
+from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.accmath import compensated_sum, masked_compensated_sum
 from admp_tpu_torch.utils.constants import DIELECTRIC
 from admp_tpu_torch.utils.linalg3 import inv3x3
@@ -96,10 +97,12 @@ def _pair_indices(pairs, n):
 
 def _pair_scalars(kappa, box):
     """The pair kernel's 19 scalars: kappa, box (9), inv(box) (9)."""
-    k = torch.as_tensor(kappa, dtype=box.dtype, device=box.device).reshape(1)
+    k = profiling.host_sync("pairs.kappa", torch.as_tensor, kappa,
+                            dtype=box.dtype, device=box.device).reshape(1)
     return torch.cat([k, box.reshape(9), inv3x3(box).reshape(9)])
 
 
+@profiling.traced("realspace")
 def pme_real_energy(positions, box, pairs, q_global, u_ind_harm, pol, tholes,
                     m_scales, p_scales, covalent_map, kappa, lmax: int,
                     lpol: bool, compensated: bool = False,
@@ -112,8 +115,9 @@ def pme_real_energy(positions, box, pairs, q_global, u_ind_harm, pol, tholes,
     at a nonzero topological distance (the kernel takes it in its mask row),
     which realspace_precision='f64' evaluates in float64 instead."""
     if pair_chunk is not None and pairs.shape[0] > pair_chunk:
+        # the blocks run inside this call's span
         return _sum_pair_chunks(
-            lambda blk: pme_real_energy(
+            lambda blk: pme_real_energy.__wrapped__(
                 positions, box, blk, q_global, u_ind_harm, pol, tholes,
                 m_scales, p_scales, covalent_map, kappa, lmax, lpol,
                 compensated, pair_kernel, None, exclude_topological),
@@ -157,6 +161,7 @@ def pme_real_energy(positions, box, pairs, q_global, u_ind_harm, pol, tholes,
     return torch.where(mask, e, torch.zeros_like(e)).sum()
 
 
+@profiling.traced("realspace")
 def pme_real_uu_energy(positions, box, pairs, u_ind_harm, pol, tholes,
                        p_scales, covalent_map, kappa,
                        pair_kernel: str = "auto", pair_chunk: int | None = None):
@@ -164,7 +169,7 @@ def pme_real_uu_energy(positions, box, pairs, u_ind_harm, pol, tholes,
     polarizable pair energy), for the SCF matvec."""
     if pair_chunk is not None and pairs.shape[0] > pair_chunk:
         return _sum_pair_chunks(
-            lambda blk: pme_real_uu_energy(
+            lambda blk: pme_real_uu_energy.__wrapped__(
                 positions, box, blk, u_ind_harm, pol, tholes, p_scales,
                 covalent_map, kappa, pair_kernel),
             pairs, pair_chunk)
@@ -247,11 +252,9 @@ def energy_pme(positions, box, pairs, q_local, u_ind_cart, pol, tholes,
     # real/self/reciprocal cancellation
     geo_dtype = f64 if (all64 or excl64 or near64) else work_dtype
     if lmax > 0:
-        frame_comps = local_frames_components(
-            positions.to(geo_dtype), box.to(geo_dtype), axis_types,
-            axis_indices)
-        q_global = rot_local2global_components(q_local.to(geo_dtype),
-                                               frame_comps, lmax)
+        q_global = global_multipoles(
+            positions.to(geo_dtype), box.to(geo_dtype),
+            q_local.to(geo_dtype), axis_types, axis_indices, lmax)
     else:
         q_global = q_local.to(geo_dtype)
     lmax_eff = lmax
@@ -513,9 +516,11 @@ class ADMPPmeForce:
             return_terms=return_terms, pair_chunk=pair_chunk_for(pairs),
             excl_pairs=self._excl_pairs)
 
+    @profiling.traced("pme.energy", composite=True)
     def _fixed_energy(self, positions, box, pairs, Q_local, mScales):
         return self._fixed_terms(positions, box, pairs, Q_local, mScales)
 
+    @profiling.traced("pme.energy", composite=True)
     def _fixed_forces(self, positions, box, pairs, Q_local, mScales):
         pos = self._float(positions).detach().requires_grad_(True)
         with torch.enable_grad():
@@ -606,6 +611,7 @@ class ADMPPmeForce:
         out = self.energy_fn(inp, u_star, return_terms=return_terms)
         return out, (u_star.detach(), conv, n_it, w)
 
+    @profiling.traced("pme.energy", composite=True)
     def _pol_energy(self, positions, box, pairs, Q_local, pol, tholes,
                     mScales, pScales, dScales, U_init=None):
         inp = self._inputs(positions, box, pairs, Q_local, pol, tholes,
@@ -614,6 +620,7 @@ class ADMPPmeForce:
         self.U_ind, self.lconverg, self.n_cycle = u, conv, n_it
         return energy
 
+    @profiling.traced("pme.energy", composite=True)
     def _pol_forces(self, positions, box, pairs, Q_local, pol, tholes,
                     mScales, pScales, dScales, U_init=None):
         """(energy, dE/dpositions); carries ``U_ind`` and, under

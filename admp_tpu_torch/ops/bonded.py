@@ -12,9 +12,11 @@ import numpy as np
 import torch
 
 from admp_tpu_torch.ops.pbc import pbc_shift
+from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.linalg3 import inv3x3
 
 
+@profiling.traced("bonded")
 def harmonic_bond_energy(positions, box, bond_idx, r0, k):
     """Sum of k/2 (|r_i - r_j| - r0)^2 over bonds.
 
@@ -28,6 +30,7 @@ def harmonic_bond_energy(positions, box, bond_idx, r0, k):
     return torch.sum(0.5 * k * (r - r0) ** 2)
 
 
+@profiling.traced("bonded")
 def harmonic_angle_energy(positions, box, angle_idx, theta0, k):
     """Sum of k/2 (theta - theta0)^2 over angle triplets (i, j, k), j the
     central atom.

@@ -60,6 +60,7 @@ import torch
 from admp_tpu_torch.ops.cuda import SPREAD_METHODS, build, use_kernel
 from admp_tpu_torch.ops.cuda.entries import entry as _entry
 from admp_tpu_torch.ops.cuda.entries import raw_stream as _raw_stream
+from admp_tpu_torch.utils import profiling
 
 ORDERS = (4, 6)
 CHANNELS = (1, 3)
@@ -284,10 +285,11 @@ class TileBins:
 
 def tile_bins(m_u0, grid_shape, tile=TILE, order: int = 6) -> TileBins:
     """Bin atoms by the tile of their base index, wrapped as admp_tpu wraps
-    it (spread.py:733-742); no capacity, no host sync."""
+    it (spread.py:733-742); no capacity and no read-back (the grid and tile
+    sizes are copied from the host: two syncs)."""
     dev = m_u0.device
-    k = torch.tensor(grid_shape, device=dev)
-    t = torch.tensor(tile, device=dev)
+    k, t = profiling.host_sync("spread.tiles", lambda: (
+        torch.tensor(grid_shape, device=dev), torch.tensor(tile, device=dev)))
     base = torch.remainder(m_u0.long() - order // 2, k)
     nt = tuple(-(-kk // tt) for kk, tt in zip(grid_shape, tile))
     tb = torch.div(base, t, rounding_mode="floor")

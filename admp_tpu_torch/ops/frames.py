@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from admp_tpu_torch.ops.harmonics import rot_local2global_components
+from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.linalg3 import inv3x3
 from admp_tpu_torch.utils.safety import safe_normalize
 
@@ -113,6 +115,17 @@ def local_frames_components(positions, box, axis_types, axis_indices):
         torch.where(is_noaxis, zero, zy),
         torch.where(is_noaxis, one, zz),
     )
+
+
+@profiling.traced("frames")
+def global_multipoles(positions, box, q_local, axis_types, axis_indices,
+                      lmax: int):
+    """The sites' multipoles in the global frame: the local frames of
+    ``positions`` and the rotation of the (N, (lmax + 1)^2) local harmonic
+    multipoles ``q_local`` by them (the span ``frames``)."""
+    frame_comps = local_frames_components(positions, box, axis_types,
+                                          axis_indices)
+    return rot_local2global_components(q_local, frame_comps, lmax)
 
 
 def construct_local_frames(positions, box, axis_types, axis_indices):

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from admp_tpu_torch.utils import comm
+from admp_tpu_torch.utils import comm, profiling
 from admp_tpu_torch.utils.linalg3 import inv3x3
 
 
@@ -91,23 +91,28 @@ def update_neighbor_list(nlist: NeighborList, positions, box):
                         i_sorted=True)
 
 
+@profiling.traced("nl.refresh")
 def refresh_neighbor_list(nlist: NeighborList, positions, box):
     """Refresh a dense or cell list and never hand back a truncated one:
     rebuild at the stored capacities, and allocate anew when a capacity
-    overflows or, for a cell list, when the box moved the cell grid."""
+    overflows or, for a cell list, when the box moved the cell grid (the
+    counter ``nl.rebuilds``)."""
     if nlist.n_cells is None:
         nl = update_neighbor_list(nlist, positions, box)
-        if bool(nl.did_overflow):
+        if profiling.host_sync("nl.overflow", bool, nl.did_overflow):
+            profiling.count("nl.rebuilds")
             return neighbor_list_dense(positions, box, nlist.cutoff)
         return nl
     if _cell_grid(box, nlist.cutoff) != tuple(nlist.n_cells):
+        profiling.count("nl.rebuilds")
         return neighbor_list_cell(positions, box, nlist.cutoff,
                                   sort_i=nlist.i_sorted)
     with torch.no_grad():
         pairs, overflow = _cell_pairs(positions, box, nlist.cutoff,
                                       nlist.n_cells, nlist.cell_capacity,
                                       nlist.capacity, nlist.i_sorted)
-    if bool(overflow):
+    if profiling.host_sync("nl.overflow", bool, overflow):
+        profiling.count("nl.rebuilds")
         return neighbor_list_cell(positions, box, nlist.cutoff,
                                   sort_i=nlist.i_sorted)
     return dataclasses.replace(nlist, pairs=pairs, did_overflow=overflow)
@@ -120,8 +125,10 @@ def refresh_neighbor_list(nlist: NeighborList, positions, box):
 
 def _cell_grid(box, cutoff):
     """Cells per axis, each at least ``cutoff`` wide."""
-    lengths = np.abs(np.diag(np.asarray(
-        box.detach().cpu() if torch.is_tensor(box) else box, np.float64)))
+    if torch.is_tensor(box):
+        box = profiling.host_sync("nl.cell_grid", torch.Tensor.cpu,
+                                  box.detach())
+    lengths = np.abs(np.diag(np.asarray(box, np.float64)))
     return tuple(int(c) for c in np.maximum((lengths // cutoff).astype(int), 1))
 
 
@@ -182,7 +189,8 @@ def _cell_candidates(positions, box, cutoff, n_cells, cell_capacity,
 
     cc = c_iota
     cell_xyz = torch.stack([cc // (ncy * ncz), (cc // ncz) % ncy, cc % ncz], -1)
-    neigh = cell_xyz[:, None, :] + torch.as_tensor(_HALF_STENCIL, device=dev)
+    neigh = cell_xyz[:, None, :] + profiling.host_sync(
+        "nl.stencil", torch.as_tensor, _HALF_STENCIL, device=dev)
     neigh_id = ((torch.remainder(neigh[..., 0], ncx) * ncy
                  + torch.remainder(neigh[..., 1], ncy)) * ncz
                 + torch.remainder(neigh[..., 2], ncz))  # (ncell, 14)

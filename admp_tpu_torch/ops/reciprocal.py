@@ -34,6 +34,7 @@ import torch
 from admp_tpu_torch.ops import bsplines
 from admp_tpu_torch.ops.cuda import spread as spread_ops
 from admp_tpu_torch.ops.cuda import SPREAD_METHODS, use_kernel
+from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.accmath import compensated_sum
 from admp_tpu_torch.utils.linalg3 import det3x3, inv3x3
 
@@ -53,8 +54,8 @@ def mesh_coordinates(positions, box, grid_shape, order: int = bsplines.ORDER):
 
     Returns (m_u0 (N, 3) int32 base mesh index, u0 (N, 3) fractional offsets
     in [order/2, order/2 + 1), dug_dx (3, 3) Jacobian N_j invbox[c, j])."""
-    n = torch.as_tensor(grid_shape, dtype=positions.dtype,
-                        device=positions.device)
+    n = profiling.host_sync("recip.grid_shape", torch.as_tensor, grid_shape,
+                            dtype=positions.dtype, device=positions.device)
     box_inv = inv3x3(box)
     r_in_m = (positions @ box_inv) * n
     m_f = torch.ceil(r_in_m).detach()
@@ -105,9 +106,9 @@ def spread_points_separable(u0, alpha, lmax: int, order: int = 6):
     tab = torch.stack(tabs, dim=1)  # (N, lmax+1, order, 3)
     n_terms = alpha.shape[-1]
     terms = _SEP_TERMS[:n_terms]
-    x = tab[:, [t[0] for t in terms], :, 0]  # (N, T, order)
-    y = tab[:, [t[1] for t in terms], :, 1]
-    z = tab[:, [t[2] for t in terms], :, 2]
+    # (N, T, order) each; a list index is copied to the device, a sync
+    x, y, z = profiling.host_sync("recip.terms", lambda: [
+        tab[:, [t[c] for t in terms], :, c] for c in range(3)])
     ax = alpha[:, :, None] * x
     xy = (ax[:, :, :, None] * y[:, :, None, :]).reshape(n, n_terms,
                                                         order * order)
@@ -317,7 +318,8 @@ def k_space_grids(box, grid_shape, dtype, order: int = 6):
 
 def _hermitian_weights(k3: int, dtype, device):
     """Multiplicities of rfft modes in the full spectrum: the k3 = 0 plane
-    (and the Nyquist plane for even K3) once, every other mode twice."""
+    (and the Nyquist plane for even K3) once, every other mode twice. Each
+    scalar written into a device tensor is a copy from the host, a sync."""
     k3h = k3 // 2 + 1
     w = torch.full((k3h,), 2.0, dtype=dtype, device=device)
     w[0] = 1.0
@@ -339,7 +341,8 @@ def influence_weights(box, grid_shape, kappa, ck_fn, order: int = 6,
         box = box.to(dtype)
     ksq, theta_sq = k_space_grids(box, grid_shape, box.dtype, order)
     volume = det3x3(box)
-    w3 = _hermitian_weights(grid_shape[2], box.dtype, box.device)
+    w3 = profiling.host_sync("recip.hermitian", _hermitian_weights,
+                             grid_shape[2], box.dtype, box.device)
     nonzero = ksq > 0.0
     ksq_safe = torch.where(nonzero, ksq, torch.ones_like(ksq))
     gamma = (ck_fn.at_zero(kappa, volume) * torch.ones_like(ksq)
@@ -418,6 +421,7 @@ def make_pme_recip(ck_fn, kappa, grid_shape, lmax, prefactor=1.0,
         cached = influence_weights(static_box, grid_shape, kappa, ck_fn,
                                    spread_order, dtype=mesh_dtype)
 
+    @profiling.traced("reciprocal")
     def pme_recip(positions, box, q_harm, u_harm=None):
         """``u_harm`` (N, 3, harmonic z/x/y order): induced dipoles spread on
         an lmax=1 mesh and added (spreading is linear)."""
@@ -454,6 +458,7 @@ def _make_ds_recip(kappa, grid_shape, lmax, prefactor, static_box):
     engines = {lmax: make_ds_pme_recip(kappa, grid_shape, lmax, prefactor,
                                        static_box=static_box)}
 
+    @profiling.traced("reciprocal")
     def ds_recip(positions, box, q_harm, u_harm=None):
         if u_harm is None:
             e = engines[lmax](positions, box, q_harm)

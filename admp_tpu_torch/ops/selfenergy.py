@@ -5,6 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.accmath import compensated_sum
 from admp_tpu_torch.utils.constants import DIELECTRIC
 
@@ -17,7 +18,8 @@ def pme_self_energy(q_harm, kappa, lmax: int = 2):
     l_list = np.array([0] + [1] * 3 + [2] * 5)[:n_harm]
     l_fac2 = np.array([1] + [3] * 3 + [15] * 5)[:n_harm]
     factor = kappa / np.sqrt(np.pi) * (2.0 * kappa**2) ** l_list / l_fac2
-    factor = torch.as_tensor(factor, dtype=q_harm.dtype, device=q_harm.device)
+    factor = profiling.host_sync("self.factor", torch.as_tensor, factor,
+                                 dtype=q_harm.dtype, device=q_harm.device)
     terms = factor[None, :] * q_harm[:, :n_harm] ** 2
     total = (compensated_sum(terms) if terms.dtype == torch.float32
              else terms.sum())

@@ -17,6 +17,7 @@ from admp_tpu_torch.ops.exclusions import (
     scale_for_distance,
 )
 from admp_tpu_torch.ops.realspace import min_image_components
+from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.constants import ANGSTROM_TO_BOHR, HARTREE_TO_KJMOL
 
 
@@ -72,6 +73,7 @@ def generate_pairwise_interaction(pair_int_kernel, covalent_map,
     del static_args, pairs_i_sorted
     covalent_map = as_covalent_map(covalent_map, resolve_device(device))
 
+    @profiling.traced("shortrange")
     def pair_int(positions, box, pairs, m_scales, *atomic_params):
         mask, i, j, r, mscale = expand_pairs(positions, box, pairs,
                                              covalent_map, m_scales)

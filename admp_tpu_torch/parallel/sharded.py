@@ -58,11 +58,8 @@ from admp_tpu_torch.models.pme import (
 from admp_tpu_torch.ops import bsplines
 from admp_tpu_torch.ops.cuda import resolve_device
 from admp_tpu_torch.ops.exclusions import as_covalent_map
-from admp_tpu_torch.ops.frames import local_frames_components
-from admp_tpu_torch.ops.harmonics import (
-    cart_dipole_to_harm,
-    rot_local2global_components,
-)
+from admp_tpu_torch.ops.frames import global_multipoles
+from admp_tpu_torch.ops.harmonics import cart_dipole_to_harm
 from admp_tpu_torch.ops.influence import ck_1, ck_6, ck_8, ck_10
 from admp_tpu_torch.ops.reciprocal import (
     _CachedInfluenceBoxGuard,
@@ -83,7 +80,7 @@ from admp_tpu_torch.parallel.spread import (
 )
 from admp_tpu_torch.scf import solver
 from admp_tpu_torch.settings import EngineConfig, SCFConfig
-from admp_tpu_torch.utils import comm
+from admp_tpu_torch.utils import comm, profiling
 from admp_tpu_torch.utils.constants import DIELECTRIC
 from admp_tpu_torch.utils.linalg3 import det3x3, inv3x3
 
@@ -141,6 +138,7 @@ def _pencil_weight_slice(cached_weight, dev, n_dev):
     return cached_weight.narrow(-2, dev * k2_local, k2_local)
 
 
+@profiling.traced("reciprocal")
 def _sharded_recip_energy(positions, box, q_tot, grid_shape, kappa, lmax,
                           ck_fn, include_gamma, prefactor, group,
                           order: int = 6, spread_precision=None,
@@ -262,9 +260,8 @@ def _make_local_energy(group, grid_shape, kappa, lmax, axis_types,
 
     def _shared(positions, box, pairs_local, q_local, m_scales,
                 u_ind=None, pol=None, tholes=None, p_scales=None):
-        frame_comps = local_frames_components(positions, box, axis_types,
-                                              axis_indices)
-        q_global = rot_local2global_components(q_local, frame_comps, lmax)
+        q_global = global_multipoles(positions, box, q_local, axis_types,
+                                     axis_indices, lmax)
         u_harm = cart_dipole_to_harm(u_ind) if lpol else None
         # computed whole on every rank: outside pvary and psum
         q_tot = _add_dipoles(q_global, u_harm)
@@ -489,6 +486,7 @@ def make_sharded_pairwise_energy(group, kernel, covalent_map, device="cuda"):
     ``fn(positions, box, pairs, m_scales, *atomic_params)``."""
     covalent_map = as_covalent_map(covalent_map, resolve_device(device))
 
+    @profiling.traced("shortrange")
     def _local(positions, box, pairs_local, m_scales, *atomic_params):
         pos_v, box_v, ms_v, *params_v = comm.pvary(
             group, positions, box, m_scales, *atomic_params)

@@ -61,6 +61,7 @@ import dataclasses
 import torch
 
 from admp_tpu_torch.settings import SCFConfig
+from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.constants import DIELECTRIC
 
 
@@ -74,6 +75,13 @@ def _safe_ratio(num, den):
                        torch.zeros_like(den))
 
 
+def _residual(r, site_mask):
+    """max |r| over the sites that count, read on the host (a sync)."""
+    return profiling.host_sync(
+        "scf.residual", float, torch.max(torch.abs(r.detach() * site_mask)))
+
+
+@profiling.traced("scf.iter", composite=True)
 def _pcg_step(matvec, precond, x, r, p, rz):
     ap = matvec(p)
     alpha = _safe_ratio(rz, _dot(p, ap))
@@ -94,11 +102,11 @@ def pcg(matvec, r0, precond, x0, max_iter, tol_field, site_mask):
     rz = _dot(r, p)
     x = x0
     it = 0
-    resid = float(torch.max(torch.abs(r.detach() * site_mask)))  # host sync
+    resid = _residual(r, site_mask)
     while resid >= tol_field and it < max_iter:
         x, r, p, rz = _pcg_step(matvec, precond, x, r, p, rz)
         it += 1
-        resid = float(torch.max(torch.abs(r.detach() * site_mask)))  # host sync
+        resid = _residual(r, site_mask)
     return x, resid < tol_field, it, r
 
 
@@ -111,7 +119,7 @@ def pcg_fixed(matvec, r0, precond, x0, n_iters, tol_field, site_mask):
     x = x0
     for _ in range(n_iters):
         x, r, p, rz = _pcg_step(matvec, precond, x, r, p, rz)
-    resid = float(torch.max(torch.abs(r.detach() * site_mask)))
+    resid = _residual(r, site_mask)
     return x, resid < tol_field, n_iters, r
 
 
@@ -123,12 +131,12 @@ def jacobi(matvec, b, damping, x0, max_iter, tol_field, site_mask):
     x = x0
     r = b - matvec(x)
     it = 0
-    resid = float(torch.max(torch.abs(r.detach() * site_mask)))  # host sync
+    resid = _residual(r, site_mask)
     while resid >= tol_field and it < max_iter:
         x = x + damping * r
         r = b - matvec(x)
         it += 1
-        resid = float(torch.max(torch.abs(r.detach() * site_mask)))  # host sync
+        resid = _residual(r, site_mask)
     return x, resid < tol_field, it, r
 
 
@@ -170,7 +178,8 @@ def adjoint_solve(matvec, diag, g, config: SCFConfig, x0=None):
     precond = lambda r: r * diag  # noqa: E731
     eps = torch.finfo(g.dtype).eps
     adj_tol = max(config.adjoint_tol, 40.0 * eps)
-    g_scale = max(float(torch.max(torch.abs(g.detach()))), 1e-30)
+    g_scale = max(profiling.host_sync(
+        "scf.adjoint_scale", float, torch.max(torch.abs(g.detach()))), 1e-30)
     ones = torch.ones_like(g[..., :1])
     if x0 is None:
         x0, r0 = torch.zeros_like(g), g

@@ -72,6 +72,7 @@ NOT_PORTED = {
     "maybe_jit",         # jax.jit
     "exp_accurate",      # torch.exp is accurate on the card
     "collective_bytes",  # the jaxpr walker; CommTally counts at the wrappers
+    "energy_breakdown",  # a metrics-line helper that nothing read
 }
 
 

@@ -200,5 +200,4 @@ def test_profiling_helpers(tmp_path):
     with profiling.trace(str(tmp_path / "tr")):
         (x * 3).sum()
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
-    out = profiling.energy_breakdown({"a": lambda: x.sum(), "b": lambda: 2})
-    assert out == {"a": 1000.0, "b": 2.0}
+    assert (tmp_path / "tr" / "spans.json").stat().st_size > 0

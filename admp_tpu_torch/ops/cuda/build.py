@@ -23,6 +23,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source: frames.cu rounds each product and sum on its own, as
+# the plain chain's elementwise ops do, so that its forward is that chain's
+# bit for bit
+SOURCE_FLAGS = {"frames": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -38,11 +42,15 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + headers
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
@@ -54,14 +62,14 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def build(names=("pairs", "pair_hvp", "pair_third", "spread", "spread_tiled")
-          ) -> dict[str, str]:
+def build(names=("pairs", "pair_hvp", "pair_third", "spread", "spread_tiled",
+                 "frames")) -> dict[str, str]:
     """Compile the named sources concurrently (skipping those already built)
     and return the compiler output of each build that ran (``-Xptxas -v``
     lists every kernel's registers, shared memory and spills). Raises on a

@@ -27,6 +27,8 @@ LIBRARIES = {
     "admp_pair_third_block_size": "pair_third",
     "admp_spread": "spread", "admp_gather": "spread",
     "admp_spread_tiled": "spread_tiled", "admp_gather_tiled": "spread_tiled",
+    "admp_frames_fwd": "frames", "admp_frames_bwd": "frames",
+    "admp_frames_block_size": "frames",
 }
 _entries = {}  # C entry point -> its ctypes function
 # device index -> its current CUDA stream as an int (None in a CPU-only

@@ -2,7 +2,9 @@
 
 Every axis-type variant is computed for every site and selected with
 ``torch.where``. Anchor indices may be -1 ("absent"), wrapped with ``mod`` as
-Python negative indexing would.
+Python negative indexing would. ``global_multipoles`` runs this chain on
+the CPU and in float64; float32 on the card takes K8, one CUDA kernel pair
+for the frames and the rotation (ops/cuda/frames.py), held against it.
 
 Axis type codes follow MPID/OpenMM:
   ZThenX=0, Bisector=1, ZBisect=2, ThreeFold=3, Zonly=4, NoAxisType=5
@@ -13,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from admp_tpu_torch.ops.cuda import frames as frames_kernel
+from admp_tpu_torch.ops.cuda import use_kernel
 from admp_tpu_torch.ops.harmonics import rot_local2global_components
 from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.linalg3 import inv3x3
@@ -122,7 +126,11 @@ def global_multipoles(positions, box, q_local, axis_types, axis_indices,
                       lmax: int):
     """The sites' multipoles in the global frame: the local frames of
     ``positions`` and the rotation of the (N, (lmax + 1)^2) local harmonic
-    multipoles ``q_local`` by them (the span ``frames``)."""
+    multipoles ``q_local`` by them (the span ``frames``): on K8 for float32
+    CUDA positions (ops/cuda.use_kernel's 'auto'), else the plain chain."""
+    if use_kernel("auto", positions, "frames"):
+        return frames_kernel.kernel_global_multipoles(
+            positions, box, q_local, axis_types, axis_indices, lmax)
     frame_comps = local_frames_components(positions, box, axis_types,
                                           axis_indices)
     return rot_local2global_components(q_local, frame_comps, lmax)

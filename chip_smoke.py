@@ -5,7 +5,7 @@
 Phases (any failure exits nonzero; no phase failure is caught):
   0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      no CUDA device -> exit 1 before anything is printed as a result;
-  1. build the eight CUDA kernels (five libraries) from admp_tpu_torch/csrc
+  1. build the nine CUDA kernels (six libraries) from admp_tpu_torch/csrc
      into admp_tpu_torch/_build (nvcc, one process per source, concurrently);
   2. each kernel against its plain PyTorch version at the main path's shapes
      (the pair HVP K3 and its backward K3b, the pair energies' third
@@ -16,7 +16,13 @@ Phases (any failure exits nonzero; no phase failure is caught):
      (6, 1) and (4, 3), each K5 mesh the same on a second launch; K4 and K6
      also on stencil rows that wrap at K3 and, at every (order, C), on axes
      shorter than the stencil; K4 through its C entry into a mesh filled
-     with NaN (the entry zeroes it);
+     with NaN (the entry zeroes it); K8 (the local frames and the multipole
+     rotation, forward and backward) against its plain chain at the 98k box
+     (98,304 sites) and the main path's 3,000: the global multipoles (also
+     the plain f32 chain's bit for bit) and the gradients of the positions, the box and q_local at a
+     standard-normal cotangent, each within max(TOL_FRAMES_Q or
+     TOL_FRAMES_G, 2 x the plain f32 chain's) relative RMSE of the plain
+     f64 chain;
   3. the MD path: the polarizable multipolar PME energy+force step of
      1000 waters (3000 atoms, lmax=2, rc 4 A, ethresh 1e-4, K3=128, the MD
      SCF profile), one cold step and 10 warm drift steps, plus one
@@ -190,13 +196,15 @@ Phases (any failure exits nonzero; no phase failure is caught):
     python3 chip_smoke.py --scripts
     python3 chip_smoke.py --precision
     python3 chip_smoke.py --fitting
+    python3 chip_smoke.py --frames
 
 print only that last line, or only the exact-adjoint step's ms/step and
 profile, for the admp_tpu_torch in DIR (another commit's checkout, or .),
 so that two trees compare in one run on the card, or run only phases 1,
 3j and 3k (with 3j's keywords), or only phases 1 and 3l, or only phases
 1, 3m (with its phase 4) and 3n, or only phases 1, K3b's part of 2, 3d and
-K3b's timing, and
+K3b's timing, or only phases 1, K8's part of 2 and 3 (the MD path, with K8's
+launches) and K8's times and record, and
 
     python3 chip_smoke.py --kernels DIR [DIR ...]
 
@@ -211,6 +219,10 @@ the MD (6, 1), full FF (4, 3) and 98k 320^3 shapes, K5 and K7 at 98k on
 320^3 and 256^3, K6 at the MD, full FF and 98k shapes.
 Phase 2 also holds the three-channel spread and gather (K4, K6 at C=3) on the
 dispersion stencil at orders 4 and 6.
+The frames have no route of their own: on the float32 card every path takes
+K8 for them, the plain routes (pair_kernel and spread_method 'torch') too,
+so the plain routes' times and comparisons hold K8 on both sides; K8 is
+held against its plain chain in phase 2.
 Each path's launch counts are set to 0 just before it runs and read just
 after; each kernel's record also holds its launches in the sharded calls
 (``sharded_launches``: the 98k and 3000-atom calls at P = 1, and rank 0's
@@ -254,6 +266,10 @@ FIT_LR = 1e-5
 # 1e-6 of the largest pair energy where a pair's terms cancel
 TOL_PAIR_E = 1e-5
 TOL_PAIR_GRAD = 1e-5    # relative RMSE of every gradient output
+# K8 against the plain f64 chain, relative RMSE floors (the global
+# multipoles; the gradients, the positions' summed by atomics in a varying
+# order), as tests/test_torch_kernels_cuda.py sets them
+TOL_FRAMES_Q, TOL_FRAMES_G = 1e-6, 1e-5
 TOL_SPREAD = 1e-5       # x max|mesh| (atomic summation order)
 TOL_STEP_E = 1e-5       # first step, kernel vs plain f32, relative energy
 TOL_STEP_F = 1e-4       # first step, kernel vs plain f32, force rel. RMSE
@@ -857,6 +873,121 @@ def check_spread_c3(w, record):
             record["_spread_c3_inputs"] = (m_u0, q, g_mesh, order)
 
 
+def frames_inputs(w, q_local):
+    """K8's inputs on a workload: positions shifted by 1.5 A along each
+    axis and wrapped into the box (waters then straddle its faces, so the
+    minimum-image wrap runs and the box carries a gradient: with every
+    molecule whole, the frames do not depend on the box),
+    box, q_local (lmax 2), the axis types and anchors as int64 on the card,
+    and a standard-normal cotangent of the global multipoles."""
+    from admp_tpu_torch.ops.pbc import wrap_positions
+
+    dev = w["positions"].device
+    idx = lambda a: torch.as_tensor(np.asarray(a), device=dev).long()  # noqa: E731
+    g = torch.tensor(np.random.default_rng(7).standard_normal(
+        tuple(q_local.shape)), device=dev, dtype=torch.float32)
+    pos = wrap_positions(w["positions"].double() + 1.5,
+                         w["box"].double()).float()
+    return (pos.contiguous(), w["box"].contiguous(),
+            q_local.contiguous(), idx(w["sys"]["axis_types"]).contiguous(),
+            idx(w["sys"]["axis_indices"]).contiguous(), g)
+
+
+def check_frames(w, w98, record):
+    """K8 against its plain chain (global_multipoles_torch and its
+    autograd, frames_vjp_torch) in float32 and float64 at the 98k box and
+    at the main path's 3,000 sites: the forward and every gradient of the
+    backward, each within max(floor, 2 x the plain f32 chain's error)
+    relative RMSE of float64."""
+    from admp_tpu_torch import convert_cart2harm
+    from admp_tpu_torch.ops.cuda import frames as F8
+
+    names = ("q_global", "d_positions", "d_box", "d_q_local")
+    floors = (TOL_FRAMES_Q, TOL_FRAMES_G, TOL_FRAMES_G, TOL_FRAMES_G)
+    record["_frames_inputs"] = {}
+    for label, x in (
+            ("98k", frames_inputs(w98, convert_cart2harm(w98["q_cart"],
+                                                         LMAX))),
+            ("3000", frames_inputs(w, w["q_local"]))):
+        pos, box, q, types, anchors, g = x
+        f0, b0 = F8.launch_frames_fwd.launches, F8.launch_frames_bwd.launches
+        kern = (F8.launch_frames_fwd(pos, box, q, types, anchors, LMAX),
+                *F8.launch_frames_bwd(pos, box, q, types, anchors, g, LMAX))
+        require(F8.launch_frames_fwd.launches - f0 == 1
+                and F8.launch_frames_bwd.launches - b0 == 1,
+                f"K8 {label}: not one launch each way")
+        plain = (F8.global_multipoles_torch(pos, box, q, types, anchors, LMAX),
+                 *F8.frames_vjp_torch(g, pos, box, q, types, anchors, LMAX))
+        d = [t.double() for t in (pos, box, q, g)]
+        f64 = (F8.global_multipoles_torch(*d[:3], types, anchors, LMAX),
+               *F8.frames_vjp_torch(d[3], *d[:3], types, anchors, LMAX))
+        torch.cuda.synchronize()
+        errs = [(rel_rmse(k, t), rel_rmse(p, t))
+                for k, p, t in zip(kern, plain, f64)]
+        same = torch.equal(kern[0], plain[0])
+        log(f"K8 {label} ({pos.shape[0]} sites): forward the plain f32 "
+            f"chain's bit for bit: {same}; rel RMSE vs plain f64, "
+            "kernel / plain f32: " + ", ".join(
+                f"{nm} {e[0]:.3e} / {e[1]:.3e}" for nm, e in zip(names, errs)))
+        require(same, f"K8 {label}: the forward is not the plain f32 chain's")
+        for nm, k, (err_k, err_p), floor in zip(names, kern, errs, floors):
+            require(bool(torch.isfinite(k).all()), f"K8 {label} {nm} not "
+                    "finite")
+            require(err_k <= max(floor, 2 * err_p),
+                    f"K8 {label} {nm}: {err_k} (plain f32 {err_p})")
+        if label == "98k":
+            record["frames_fwd"]["max_abs_err"] = float(
+                (kern[0] - plain[0]).abs().max())
+            record["frames_bwd"]["max_abs_err"] = max(
+                float((a - b).abs().max()) for a, b in zip(kern[1:],
+                                                           plain[1:]))
+        record["_frames_inputs"][label] = x
+
+
+def frames_calls(inputs):
+    """K8's (kernel, plain, library, bound) at the 98k box ('frames_fwd',
+    'frames_bwd') and at the 3,000 sites ('..._3000'), as the MD step calls
+    it: the forward, and the backward for the positions' gradient alone (the
+    box and q_local carry none there); the plain chain's forward, and its
+    autograd backward for the positions. Bytes: the forward reads a site's
+    position, type, anchors and multipoles and writes its global multipoles
+    (116 B a site at lmax 2), the backward reads those and the cotangent and
+    writes the position's gradient (128 B); operations: the plain chain's,
+    counted on the host. No single PyTorch call computes either."""
+    from admp_tpu_torch.ops.cuda import frames as F8
+
+    calls = {}
+    for label, suffix in (("98k", ""), ("3000", "_3000")):
+        pos, box, q, types, anchors, g = inputs[label]
+        xp = pos.detach().requires_grad_(True)
+        out = F8.global_multipoles_torch(xp, box, q, types, anchors, LMAX)
+        host = [t.detach().cpu() for t in (pos, box, q, types, anchors, g)]
+
+        def host_fwd(h=host):
+            F8.global_multipoles_torch(*h[:5], LMAX)
+
+        def host_bwd(h=host):
+            hp = h[0].clone().requires_grad_(True)
+            torch.autograd.grad(F8.global_multipoles_torch(hp, *h[1:5], LMAX),
+                                hp, h[5])
+
+        a = (pos, box, q, types, anchors)
+        calls["frames_fwd" + suffix] = (
+            lambda a=a: F8.launch_frames_fwd(*a, LMAX),
+            lambda a=a: F8.global_multipoles_torch(*a, LMAX),
+            None,
+            bound(nbytes(pos, q, types, anchors) + nbytes(q),
+                  count_ops(host_fwd)))
+        calls["frames_bwd" + suffix] = (
+            lambda a=a, g=g: F8.launch_frames_bwd(*a, g, LMAX, want_box=False,
+                                                  want_q=False),
+            lambda out=out, xp=xp, g=g: torch.autograd.grad(
+                out, xp, g, retain_graph=True),
+            None,
+            bound(nbytes(pos, q, types, anchors, g, pos), count_ops(host_bwd)))
+    return calls
+
+
 # ---------------------------------------------------------------------------
 # phase 3/4: the main path
 # ---------------------------------------------------------------------------
@@ -900,6 +1031,8 @@ def main_path(w, record):
             "a kernel never launched")
     require(launches["pair_hvp"] == launches["pair_third"] == 0,
             "the MD step launched K3 or K3b")
+    require(launches["frames_fwd"] > 0 and launches["frames_bwd"] > 0,
+            "the MD step never launched K8")
     require(cold[1] and all(s[2] for s in steps), "SCF did not converge")
     require(cold[0] <= 10, f"cold iterations {cold[0]} > 10")
     require(all(s[1] <= 3 for s in steps), "warm iterations > 3")
@@ -909,7 +1042,8 @@ def main_path(w, record):
     require(bool(torch.isfinite(g0).all()) and bool(torch.isfinite(g_fix).all())
             and tuple(g0.shape) == tuple(w["positions"].shape),
             "forces not finite or of the wrong shape")
-    for k in ("pair_fwd", "pair_bwd", "spread", "gather"):
+    for k in ("pair_fwd", "pair_bwd", "spread", "gather", "frames_fwd",
+              "frames_bwd"):
         record[k]["launches"] = launches[k]
 
     # the first step against the plain path, f32 and f64, on the card
@@ -958,11 +1092,12 @@ def main_path(w, record):
 
 
 def reset_counts():
-    from admp_tpu_torch.ops.cuda import pairs as P, spread as S
+    from admp_tpu_torch.ops.cuda import frames as F8, pairs as P, spread as S
 
     for c in (P.launch_pair_fwd, P.launch_pair_bwd, P.launch_pair_hvp,
               P.launch_pair_third, S.launch_spread, S.launch_gather,
-              S.launch_spread_tiled, S.launch_gather_tiled):
+              S.launch_spread_tiled, S.launch_gather_tiled,
+              F8.launch_frames_fwd, F8.launch_frames_bwd):
         c.launches = 0
     for c in (P.launch_pair_fwd, P.launch_pair_bwd, P.launch_pair_hvp,
               P.launch_pair_third):
@@ -973,7 +1108,7 @@ def reset_counts():
 
 
 def read_counts():
-    from admp_tpu_torch.ops.cuda import pairs as P, spread as S
+    from admp_tpu_torch.ops.cuda import frames as F8, pairs as P, spread as S
 
     torch.cuda.synchronize()
     return {"pair_fwd": P.launch_pair_fwd.launches,
@@ -982,6 +1117,8 @@ def read_counts():
             "pair_third": P.launch_pair_third.launches,
             "spread": S.launch_spread.launches,
             "gather": S.launch_gather.launches,
+            "frames_fwd": F8.launch_frames_fwd.launches,
+            "frames_bwd": F8.launch_frames_bwd.launches,
             "pair_fwd_by_kind": dict(P.launch_pair_fwd.by_kind),
             "pair_bwd_by_kind": dict(P.launch_pair_bwd.by_kind),
             "pair_hvp_by_kind": dict(P.launch_pair_hvp.by_kind),
@@ -3575,7 +3712,8 @@ def sharded_path(w, w98, record, card):
     sharded_keywords(w, f64, p1, [r["keywords"] for r in ranks[:2]], card)
     log("phase 3j: the precision keywords at P = 1 (NCCL) and P = 2 (gloo) "
         "ok")
-    for name in ("pair_fwd", "pair_bwd", "pair_hvp", "spread", "gather"):
+    for name in ("pair_fwd", "pair_bwd", "pair_hvp", "spread", "gather",
+                 "frames_fwd", "frames_bwd"):
         record[name]["sharded_launches"] = {
             "98k_P1": large["launches"][name],
             "pol_P1": pol1["launches"][name],
@@ -3632,7 +3770,9 @@ def script_launches(counts):
             "spread_c3": by("spread_by_shape", 3),
             "gather_c3": by("gather_by_shape", 3),
             "spread_tiled": sum(counts["spread_tiled_by_shape"].values()),
-            "gather_tiled": sum(counts["gather_tiled_by_shape"].values())}
+            "gather_tiled": sum(counts["gather_tiled_by_shape"].values()),
+            "frames_fwd": counts["frames_fwd"],
+            "frames_bwd": counts["frames_bwd"]}
 
 
 def run_script(name, fn, walls, launches):
@@ -4462,18 +4602,21 @@ def time_kernels(record):
                   spread_calls(m3, q3, g3, order3).items()})
     m98, q98, g98 = record.pop("_tiled_inputs")
     calls.update(tiled_calls(m98, q98, g98, 6))
+    calls.update(frames_calls(record.pop("_frames_inputs")))
     for name, (kernel, plain, library, (b_ms, b_by)) in calls.items():
         r = record.setdefault(name, {})
         r["ms"], r["device_ms"] = cuda_time_ms(kernel)
         r["plain_ms"], r["plain_device_ms"] = cuda_time_ms(plain)
         r["library_ms"] = cuda_time_ms(library)[0] if library else None
         r["bound_ms"], r["bound_by"] = b_ms, b_by
-    # K3b at the 'uu' shapes: logged, its record row is 'pol'
-    r = record.pop("pair_third_uu")
-    log(f"  pair_third (uu): kernel {r['ms']:.4f} ms/call ({r['device_ms']:.4f}"
-        f" ms device), plain {r['plain_ms']:.4f} ms/call "
-        f"({r['plain_device_ms']:.4f} ms device), bound {r['bound_ms']:.4f} ms"
-        f" ({r['bound_by']})")
+    # K3b at the 'uu' shapes and K8 at 3,000 sites: logged, their record
+    # rows are 'pol' and the 98k box
+    for name in ("pair_third_uu", "frames_fwd_3000", "frames_bwd_3000"):
+        r = record.pop(name)
+        log(f"  {name}: kernel {r['ms']:.4f} ms/call ({r['device_ms']:.4f}"
+            f" ms device), plain {r['plain_ms']:.4f} ms/call "
+            f"({r['plain_device_ms']:.4f} ms device), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def third_calls(inputs):
@@ -4569,7 +4712,8 @@ def main():
     # this tree's beside each DIR's in one process
     # --sharded: only phases 1, 3j and 3k; --scripts: only phases 1 and 3l;
     # --precision: only phases 1, 3m and 3n; --fitting: only phase 1, K3b
-    # against its plain version, phase 3d and K3b's times
+    # against its plain version, phase 3d and K3b's times; --frames: only
+    # phase 1, K8 against its plain chain, phase 3 and K8's times
     mode = sys.argv[1] if len(sys.argv) > 1 else None
     other = sys.argv[2] if mode in ("--launchers", "--adjoint") else None
     sys.path.insert(0, other or str(ROOT))
@@ -4631,6 +4775,12 @@ def main():
                              replaces="admp_tpu/ops/pallas/spread.py:718"),
         "gather_tiled": dict(source="admp_tpu_torch/csrc/spread_tiled.cu",
                              replaces="admp_tpu/ops/pallas/spread.py:949"),
+        # no TPU kernel: XLA fuses local_frames_components (frames.py:102)
+        # and rot_local2global_components (harmonics.py:226) on the TPU
+        "frames_fwd": dict(source="admp_tpu_torch/csrc/frames.cu",
+                           replaces="admp_tpu/ops/frames.py:102"),
+        "frames_bwd": dict(source="admp_tpu_torch/csrc/frames.cu",
+                           replaces="admp_tpu/ops/frames.py:102"),
     }
     t0 = time.perf_counter()
     w = build_workload(dev)
@@ -4659,6 +4809,30 @@ def main():
                 f"device), bound {b_ms:.4f} ms ({b_by})")
         log("phase 3d: trainer ok")
         return 0
+    if mode == "--frames":
+        check_frames(w, build_large(dev), record)
+        log("phase 2: K8 agrees with its plain chain")
+        main_path(w, record)
+        log("phase 3: main path ok")
+        rows = []
+        for name, (kernel, plain, _, (b_ms, b_by)) in frames_calls(
+                record.pop("_frames_inputs")).items():
+            ms_k, dev_k = cuda_time_ms(kernel)
+            ms_p, dev_p = cuda_time_ms(plain)
+            log(f"  [{card}] {name}: kernel {ms_k:.4f} ms/call ({dev_k:.4f} "
+                f"ms device), plain {ms_p:.4f} ms/call ({dev_p:.4f} ms "
+                f"device), bound {b_ms:.4f} ms ({b_by})")
+            if name in ("frames_fwd", "frames_bwd"):
+                r = record[name]
+                rows.append(dict(
+                    name=name, route="cuda", source=r["source"],
+                    replaces=r["replaces"], launches=r["launches"],
+                    max_abs_err=r["max_abs_err"], ms=ms_k, device_ms=dev_k,
+                    plain_ms=ms_p, plain_device_ms=dev_p, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None))
+        log(card)
+        print(json.dumps({"kernels": rows}))
+        return 0
     if mode == "--precision":
         pol_forces, pol_prec = pol_ladder_path(w)
         time_pol_ladder(pol_forces, w, card, pol_prec)
@@ -4678,6 +4852,7 @@ def main():
     check_spread_rows(dev)
     w98 = build_large(dev)
     check_spread_tiled(w98, record)
+    check_frames(w, w98, record)
     log("phase 2: every kernel agrees with its plain version")
 
     force, plain32 = main_path(w, record)

@@ -44,7 +44,22 @@ launched twice per step under 'f64-near'. K4 and K6 on the sharded spread's
 halo slabs (1e-5 max|mesh|, bit for bit) at the 98k box's P = 1 and P = 4
 slab shapes. The user's script admp_tpu_torch.examples.run_water at
 --nmol 27, plain and --polarizable, on the kernels against the plain
-versions (energies 1e-5, forces 1e-4; 2e-4 for the exact adjoint).
+versions (energies 1e-5, forces 1e-4; 2e-4 for the exact adjoint). K8, the
+local frames and the multipole rotation, against the plain chain in
+float64 on water boxes of 192 and 98,304 sites (every y anchor absent; at
+98k the main path's size, where the position gradient's atomics meet on
+each water's oxygen) and on a random system of every axis type (absent
+anchors, one wrapped to site n - 1, zero directions): the forward, the
+gradients of the positions, q_local and the box, and a force-matching
+loss's gradient through its double backward, each within 2 x the plain
+float32 chain's error or a floor (1e-6 forward, 1e-5 gradients: the
+positions' gradient is summed by atomics in a varying order); one launch
+each way, and 'auto' taking the plain chain in float64; K8's forward is
+the plain float32 chain's bit for bit. Since K8, 'auto'
+takes it on the float32 card under every EngineConfig, so the older
+whole-path comparisons above (kernels against the plain pair and spread
+routes) hold K8 on both sides; K8's own tests hold it against the plain
+chain.
 """
 
 import numpy as np
@@ -1127,3 +1142,186 @@ def test_run_water_script_kernels_match_plain(dev, polarizable):
     tol_f = 2e-4 if polarizable else 1e-4
     for f in ("f_pme", "f_disp", "f_tt"):
         assert _rel(kern[f], plain[f]) < tol_f, f
+
+
+# ---------------------------------------------------------------------------
+# K8: the local frames and the rotation of the multipoles (ops/cuda/frames)
+# ---------------------------------------------------------------------------
+
+
+def _frames_system(dev, lmax, dtype=torch.float32, seed=0, n_mol=12):
+    """A random system for K8: clusters of four sites in a triclinic box
+    (positions wrapped into it, so clusters straddle its faces), every axis
+    type in turn, -1 for each anchor a type does not use, and on top: the y
+    anchor of ZBisect site 2 and of ThreeFold site 3 -1 (wrapped to site
+    n - 1), site 6 its own x anchor (a zero direction) and site n - 1 a
+    ZThenX site whose z anchor -1 wraps to itself. (positions, box,
+    q_local (N, (lmax + 1)^2), axis_types, axis_indices)."""
+    rng = np.random.default_rng(seed)
+    box = np.array([[9.0, 0.0, 0.0], [0.3, 9.0, 0.0], [0.2, -0.4, 9.0]])
+    centres = rng.uniform(0, 1, (n_mol, 3)) @ box
+    pos = (centres[:, None, :] + rng.normal(0, 0.8, (n_mol, 4, 3))).reshape(
+        -1, 3)
+    frac = pos @ np.linalg.inv(box)
+    pos = (frac - np.floor(frac)) @ box
+    n = pos.shape[0]
+    types = np.arange(n) % 6
+    anchors = np.full((n, 3), -1, dtype=np.int64)
+    used = {0: 2, 1: 2, 2: 3, 3: 3, 4: 1, 5: 0}
+    for i in range(n):
+        mates = [m for m in range(4 * (i // 4), 4 * (i // 4) + 4) if m != i]
+        rng.shuffle(mates)
+        anchors[i, :used[types[i]]] = mates[:used[types[i]]]
+    anchors[2, 2] = anchors[3, 2] = -1
+    anchors[6, 1] = 6
+    types[n - 1] = 0
+    anchors[n - 1, :2] = (-1, n - 2)
+    q = rng.normal(0, 1, (n, (lmax + 1) ** 2))
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    return (t(pos), t(box), t(q), torch.tensor(types, device=dev),
+            torch.tensor(anchors, device=dev))
+
+
+def _frames_water(dev, dtype=torch.float32, n_side=4):
+    """The n_side^3 water box of _system with its multipoles (lmax 2):
+    Bisector and ZThenX sites whose y anchors are all -1, the positions
+    shifted by 1.5 A along each axis and wrapped into the box (waters then
+    straddle its faces, so the minimum-image wrap runs and the box carries
+    a gradient: with every molecule whole, the frames do not depend on the
+    box)."""
+    s = water_system(n_side=n_side, spacing=3.1, jitter=0.12, seed=4,
+                     exclusions=None)
+    frac = (s["positions"] + 1.5) @ np.linalg.inv(s["box"])
+    pos = (frac - np.floor(frac)) @ s["box"]
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    return (t(pos), t(s["box"]),
+            convert_cart2harm(t(s["q_cart"]), 2),
+            torch.as_tensor(s["axis_types"], device=dev),
+            torch.as_tensor(s["axis_indices"], device=dev))
+
+
+def _frames_route(method):
+    """The global multipoles by route: 'cuda' K8
+    (ops/cuda/frames.kernel_global_multipoles), 'torch' the plain chain
+    (global_multipoles_torch), 'auto' ops/frames.global_multipoles, which
+    picks one of the two."""
+    from admp_tpu_torch.ops.cuda import frames as K8
+    from admp_tpu_torch.ops.frames import global_multipoles
+
+    return {"cuda": K8.kernel_global_multipoles,
+            "torch": K8.global_multipoles_torch,
+            "auto": global_multipoles}[method]
+
+
+def _frames_grads(system, method, dtype, seed=3):
+    """The global multipoles of ``system`` cast to ``dtype`` by the route
+    ``method`` (_frames_route), and the gradients of sum(w * q_global)
+    w.r.t. positions, q_local and the box (through its inverse) at a seeded
+    standard-normal w."""
+    pos, box, q, types, anchors = system
+    lmax = int(round(q.shape[1] ** 0.5)) - 1
+    x = [t.detach().to(dtype).requires_grad_(True) for t in (pos, box, q)]
+    out = _frames_route(method)(x[0], x[1], x[2], types, anchors, lmax)
+    rng = np.random.default_rng(seed)
+    w = torch.tensor(rng.standard_normal(tuple(out.shape)), dtype=dtype,
+                     device=out.device)
+    return (out, *torch.autograd.grad((out * w).sum(), x))
+
+
+def _frames_force_matching(system, method, dtype):
+    """The gradient w.r.t. q_local and positions of a force-matching loss
+    through global_multipoles: E = sum(w q_global + q_global^2 / 2), F =
+    -dE/dx (a graph asked of it), loss = sum((F - F0)^2): K8's double
+    backward (FramesBwdFn's backward)."""
+    pos, box, q, types, anchors = system
+    lmax = int(round(q.shape[1] ** 0.5)) - 1
+    x, ql = (t.detach().to(dtype).requires_grad_(True) for t in (pos, q))
+    rng = np.random.default_rng(11)
+    w = torch.tensor(rng.standard_normal(tuple(q.shape)), dtype=dtype,
+                     device=q.device)
+    f0 = torch.tensor(rng.standard_normal(tuple(pos.shape)), dtype=dtype,
+                      device=q.device)
+    qg = _frames_route(method)(x, box.to(dtype), ql, types, anchors, lmax)
+    e = (w * qg + 0.5 * qg * qg).sum()
+    (g,) = torch.autograd.grad(e, x, create_graph=True)
+    loss = ((-g - f0) ** 2).sum()
+    return torch.autograd.grad(loss, (ql, x))
+
+
+FRAMES_CASES = [("water", 2), ("random", 1), ("random", 2)]
+# on the card also the main path's 98,304-site water box
+FRAMES_CARD_CASES = FRAMES_CASES + [("water98k", 2)]
+
+
+def _frames_case(dev, name, lmax):
+    if name.startswith("water"):
+        return _frames_water(dev, n_side=32 if name == "water98k" else 4)
+    return _frames_system(dev, lmax)
+
+
+@pytest.mark.parametrize("name,lmax", FRAMES_CARD_CASES)
+def test_frames_kernel_matches_plain(dev, name, lmax):
+    """K8 forward and backward against the plain chain in float64, within
+    max(1e-6, 2 x the plain float32 chain's error) relative RMSE for the
+    global multipoles and max(1e-5, 2 x its error) for the gradients (the
+    positions' are summed by atomics in an order that varies from run to
+    run, and the card contracts to FMAs); one launch each way, and none on
+    the plain route."""
+    from admp_tpu_torch.ops.cuda import frames as K8
+
+    system = _frames_case(dev, name, lmax)
+    f0, b0 = K8.launch_frames_fwd.launches, K8.launch_frames_bwd.launches
+    kern = _frames_grads(system, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    assert K8.launch_frames_fwd.launches - f0 == 1
+    assert K8.launch_frames_bwd.launches - b0 == 1
+    plain = _frames_grads(system, "torch", torch.float32)
+    assert K8.launch_frames_fwd.launches - f0 == 1
+    truth = _frames_grads(system, "torch", torch.float64)
+    for what, k, p, t, floor in zip(("q_global", "positions", "box",
+                                     "q_local"), kern, plain, truth,
+                                    (1e-6, 1e-5, 1e-5, 1e-5)):
+        assert bool(torch.isfinite(k).all()), what
+        tol = max(floor, 2 * _rel(p, t))
+        assert _rel(k, t) <= tol, (what, _rel(k, t), tol)
+
+
+@pytest.mark.parametrize("name,lmax", FRAMES_CARD_CASES)
+def test_frames_kernel_forward_is_the_plain_chain_bitwise(dev, name, lmax):
+    """K8's forward is the plain float32 chain's result bit for bit: built
+    without FMA contraction, it takes the chain's operations in their order
+    and rounds each as PyTorch's elementwise ops do."""
+    from admp_tpu_torch.ops.cuda import frames as K8
+
+    pos, box, q, types, anchors = _frames_case(dev, name, lmax)
+    got = K8.kernel_global_multipoles(pos, box, q, types, anchors, lmax)
+    want = K8.global_multipoles_torch(pos, box, q, types, anchors, lmax)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("name,lmax", FRAMES_CARD_CASES)
+def test_frames_kernel_double_backward(dev, name, lmax):
+    """A force-matching loss's gradient w.r.t. q_local and the positions
+    through K8 (its backward's backward recomputes the plain chain) against
+    the plain chain in float64, within max(1e-5, 2 x the plain float32
+    chain's error) relative RMSE."""
+    system = _frames_case(dev, name, lmax)
+    kern = _frames_force_matching(system, "cuda", torch.float32)
+    plain = _frames_force_matching(system, "torch", torch.float32)
+    truth = _frames_force_matching(system, "torch", torch.float64)
+    for what, k, p, t in zip(("q_local", "positions"), kern, plain, truth):
+        tol = max(1e-5, 2 * _rel(p, t))
+        assert _rel(k, t) <= tol, (what, _rel(k, t), tol)
+
+
+def test_frames_auto_takes_the_kernel_in_float32_only(dev):
+    """'auto' launches K8 on float32 CUDA inputs and the plain chain on
+    float64 ones (the float64 real-space modes)."""
+    from admp_tpu_torch.ops.cuda import frames as K8
+
+    system = _frames_water(dev)
+    f0 = K8.launch_frames_fwd.launches
+    _frames_grads(system, "auto", torch.float32)
+    assert K8.launch_frames_fwd.launches - f0 == 1
+    _frames_grads(system, "auto", torch.float64)
+    assert K8.launch_frames_fwd.launches - f0 == 1

@@ -5,8 +5,9 @@ under torch.profiler (every span of a Langevin step with its parent, the
 leaf ranges top-level with the backward's autograd nodes inside the
 ``.bwd`` ranges, the registry's stamps inside the profiler's events), the
 exact adjoint's third derivative traced, the list refresh and the export.
-On the card: the kernels' step traced and untraced, and no synchronizing
-call outside a counted ``host.sync`` site."""
+On the card: the kernels' step traced and untraced, no synchronizing call
+outside a counted ``host.sync`` site, and the frames on K8 still recorded
+as ``frames`` and ``frames.bwd``, with its two launches a step counted."""
 
 import dataclasses
 import json
@@ -391,3 +392,27 @@ def test_kernels_step_traced_and_without_stray_syncs():
     assert snap["counters"]["host.syncs.scf.residual"] >= 1
     assert stray == []
     profiling.reset()
+
+
+@pytest.mark.cuda
+def test_frames_kernel_step_keeps_its_spans():
+    """On the card: the fixed-multipole Langevin step with the frames on K8
+    (ops/cuda/frames.py) records the spans ``frames`` and ``frames.bwd``
+    once each, with their parent, and the counter ``frames.kernel`` reads
+    2: K8's forward and backward, the launches the profile shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w = _Water(False, device=torch.device("cuda", 0), dtype=torch.float32,
+               n_side=10)
+    _, _, prof, snap = w.langevin_step(True)
+    profiling.reset()
+    spans = snap["spans"]
+    for name in ("frames", "frames.bwd"):
+        assert spans[name]["count"] == 1, (name, spans[name])
+        assert spans[name]["parents"] == {"pme.energy": 1}, name
+    assert snap["counters"]["frames.kernel"] == 2
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("frames_fwd_kernel" in n for n in names) == 1
+    assert sum("frames_bwd_kernel" in n for n in names) == 1
+    assert profiling._OPEN == []

@@ -590,24 +590,26 @@ class ADMPPmeForce:
         theta = [inp[k] for k in self._MATVEC_KEYS]
         scf = self.scf_config
         inp_d = {k: v.detach() for k, v in inp.items()}
-        # the Jacobi method iterates on A u = b from b = -field(0)
-        rhs = (-self.field(torch.zeros_like(u0), inp_d)
-               if scf.method == "jacobi" else None)
-        if scf.exact_adjoint:
-            if W_init is None and scf.adjoint_warmstart:
-                scf = dataclasses.replace(scf, adjoint_warmstart=False)
-            r0 = -self.field(u0, inp, create_graph=True)
-            u_star, conv, n_it, w = solver.solve_implicit(
-                r0, u0, inp["pol"], matvec_fn, scf, theta, rhs=rhs,
-                w_init=W_init)
-        else:
-            # FH cut: the solve contributes no gradient
-            theta_d = [t.detach() for t in theta]
-            r0 = -self.field(u0, inp_d)
-            u_star, conv, n_it, _ = solver.solve(
-                lambda v: matvec_fn(v, theta_d, False), r0, u0, inp["pol"],
-                scf, rhs)
-            w = torch.zeros_like(u0)
+        # the warm-start field and the solve; the energy pass stays outside
+        with profiling.span("scf.solve", composite=True):
+            # the Jacobi method iterates on A u = b from b = -field(0)
+            rhs = (-self.field(torch.zeros_like(u0), inp_d)
+                   if scf.method == "jacobi" else None)
+            if scf.exact_adjoint:
+                if W_init is None and scf.adjoint_warmstart:
+                    scf = dataclasses.replace(scf, adjoint_warmstart=False)
+                r0 = -self.field(u0, inp, create_graph=True)
+                u_star, conv, n_it, w = solver.solve_implicit(
+                    r0, u0, inp["pol"], matvec_fn, scf, theta, rhs=rhs,
+                    w_init=W_init)
+            else:
+                # FH cut: the solve contributes no gradient
+                theta_d = [t.detach() for t in theta]
+                r0 = -self.field(u0, inp_d)
+                u_star, conv, n_it, _ = solver.solve(
+                    lambda v: matvec_fn(v, theta_d, False), r0, u0,
+                    inp["pol"], scf, rhs)
+                w = torch.zeros_like(u0)
         out = self.energy_fn(inp, u_star, return_terms=return_terms)
         return out, (u_star.detach(), conv, n_it, w)
 

@@ -18,9 +18,9 @@ cover) and the spans it was opened under, its parents.
   nest, but for ``host.sync`` inside a layer's span, so they stay the
   trace's top-level ranges, and what the host did while the card sat idle
   is named after them.
-- A composite span (``composite=True``: an MD step, an energy call, a PCG
-  iteration, a fitting step) is in the registry only; a range around it
-  would hide its leaves' names.
+- A composite span (``composite=True``: an MD step, an energy call, an SCF
+  solve, a PCG iteration, a fitting step) is in the registry only; a range
+  around it would hide its leaves' names.
 - A leaf function run by ``traced`` whose tensors carry gradients also
   times its backward, as the span ``<name>.bwd`` with the forward's parent.
   An identity autograd Function on the function's outputs (views: no

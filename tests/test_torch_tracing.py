@@ -176,7 +176,8 @@ def test_one_step_records_every_span_with_its_parent(runs):
     for name in LAYERS:
         want[name] = want[name + ".bwd"] = "pme.energy"
     if kind == "pol":
-        want.update({"scf.iter": "pme.energy", "host.sync": "pme.energy"})
+        want.update({"scf.solve": "pme.energy", "scf.iter": "scf.solve",
+                     "host.sync": "scf.solve"})
         assert snap["counters"]["host.syncs.scf.residual"] == (
             spans["scf.iter"]["count"] + 1)
         # the field's gradient in the dipoles runs no frames backward
@@ -197,7 +198,7 @@ def test_leaf_ranges_are_top_level(runs):
     events = prof.events()
     ranges = [e for e in events if e.name.startswith("admp::")]
     leaves = {n for n in snap["spans"]
-              if n not in ("md.step", "pme.energy", "scf.iter")}
+              if n not in ("md.step", "pme.energy", "scf.solve", "scf.iter")}
     assert {e.name[6:] for e in ranges} == leaves
     # a host sync may wait inside a layer's range
     for e in ranges:
@@ -249,6 +250,34 @@ def test_nodes_without_sequence_numbers(monkeypatch):
         assert on[3]["spans"][name + ".bwd"]["count"] >= 1, name
     assert profiling._OPEN == []
     profiling.reset()
+
+
+@pytest.mark.parametrize("exact", [False, True],
+                         ids=["feynman_hellmann", "exact_adjoint"])
+def test_scf_solve_encloses_the_forward_iterations(exact):
+    """One polarizable force call traced: ``scf.solve`` once, under the
+    energy call, around the warm-start field and every iteration of the
+    forward PCG. Under the exact adjoint the adjoint's iterations run in the
+    backward, after the solve has closed, and are the only ones outside
+    it."""
+    w = _Water(True)
+    w.pme.scf_config = SCFConfig(exact_adjoint=exact, field_tol=1e-3)
+    w.pme.refresh_calculators()
+    profiling.reset()
+    with _profile():
+        w.force_fn(w.positions, None)
+    spans = profiling.snapshot()["spans"]
+    profiling.reset()
+    assert spans["scf.solve"]["count"] == 1
+    assert spans["scf.solve"]["parents"] == {"pme.energy": 1}
+    n_fwd = w.pme.n_cycle
+    assert n_fwd >= 1
+    parents = dict(spans["scf.iter"]["parents"])
+    assert parents.pop("scf.solve") == n_fwd
+    n_adjoint = sum(parents.values())
+    assert (n_adjoint >= 1) if exact else (n_adjoint == 0)
+    assert spans["scf.solve"]["total_ms"] <= spans["pme.energy"]["total_ms"]
+    assert profiling._OPEN == []
 
 
 def _force_matching(traced):

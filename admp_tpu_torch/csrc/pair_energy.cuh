@@ -670,7 +670,8 @@ __device__ __forceinline__ void zero_pair(int p, int C, float* const* oi, float*
       oi[j][k] = 0.f;
       oj[j][k] = 0.f;
     }
-    for (int r = 0; r < L::NSCL; ++r) dscl[j][r * C + p] = 0.f;
+    if (dscl[j] != nullptr)
+      for (int r = 0; r < L::NSCL; ++r) dscl[j][r * C + p] = 0.f;
   }
   if (dct != nullptr) dct[p] = 0.f;
 }
@@ -1067,8 +1068,9 @@ __device__ __forceinline__ void pair_energy_grad(const S* d, bool degenerate, co
 // part 0 of e is h^T H c, written to dct. ri, rj: the pair's two input rows;
 // ci, cj, hi, hj: their direction rows (read where S carries them); oi[J],
 // oj[J]: its two output rows of part J (the kernels stage them in shared
-// memory), dscl[J] and sg[J] its scale rows and scalars of part J. The
-// per-pair outputs of a masked pair are zeros.
+// memory), dscl[J] and sg[J] its scale rows and scalars of part J (dscl[0]
+// nullptr: the scale rows' gradient is not wanted, and no part is written).
+// The per-pair outputs of a masked pair are zeros.
 template <int KIND, int LMAX, class S>
 __device__ __forceinline__ void pair_grad_parts(
     int p, int C, const float* __restrict__ ri, const float* __restrict__ rj,
@@ -1120,11 +1122,15 @@ __device__ __forceinline__ void pair_grad_parts(
       oj[1][3 + m] = part<1>(y);
     }
   }
+  if (dscl[0] != nullptr) {
 #pragma unroll
-  for (int m = 0; m < NS; ++m) {
-    const S x = ctp * gs[m];
-    dscl[0][scale_row(m) * C + p] = part<0>(x);
-    if constexpr (NP > 1) dscl[1][scale_row(m) * C + p] = part<1>(x);
+    for (int m = 0; m < NS; ++m) {
+      const S x = ctp * gs[m];
+      dscl[0][scale_row(m) * C + p] = part<0>(x);
+      if constexpr (NP > 1) dscl[1][scale_row(m) * C + p] = part<1>(x);
+    }
+#pragma unroll
+    for (int j = 0; j < NP; ++j) dscl[j][C + p] = 0.f;  // the mask row
   }
   {
     const S x = ctp * gk;  // kappa
@@ -1134,8 +1140,6 @@ __device__ __forceinline__ void pair_grad_parts(
 #pragma unroll
   for (int m = 0; m < 3; ++m) gd[m] = ctp * gd[m];
   wrap_grad(w, box, binv, gd, oi, oj, sg);
-#pragma unroll
-  for (int j = 0; j < NP; ++j) dscl[j][C + p] = 0.f;  // the mask row
 }
 
 // K2's and K3's body (S = float, Dual1): pair_grad_parts with one part, the

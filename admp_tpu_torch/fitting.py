@@ -6,7 +6,7 @@ a ``torch.optim`` optimizer, records each step's loss and time, and saves and
 resumes (params, optimizer state) through checkpoint.py. Force-matching
 losses differentiate the potential's position gradient again
 (``create_graph=True``): on the CUDA kernels that runs the pair kernel's
-Hessian-vector kernel (ops/cuda/pairs.PairBwdFn). On a polarizable
+Hessian-vector kernel (ops/cuda/pairs.PairTableBwdFn). On a polarizable
 potential with the exact adjoint that takes the solve's backward's
 backward, which runs where ``SCFConfig.adjoint_fixed_iters`` is set, as in
 admp_tpu (scf/solver.ImplicitSolve), and on the kernels the pair energies'

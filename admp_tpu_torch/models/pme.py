@@ -44,7 +44,7 @@ import torch
 
 from admp_tpu_torch.ops import realspace
 from admp_tpu_torch.ops.cuda import resolve_device, use_kernel
-from admp_tpu_torch.ops.cuda.pairs import pair_energies
+from admp_tpu_torch.ops.cuda.pairs import pair_energies_indexed
 from admp_tpu_torch.ops.ewald import (
     lane_align_k3,
     setup_ewald_parameters,
@@ -130,7 +130,7 @@ def pme_real_energy(positions, box, pairs, q_global, u_ind_harm, pol, tholes,
         mask = mask & (nbond == 0)
 
     if use_kernel(pair_kernel, positions, "pair_kernel"):
-        # the kernel takes the two gathered rows of one packed atom table
+        # the kernels read both rows of each pair from one packed atom table
         dtype = positions.dtype
         cols = [positions, q_global[:, : (lmax + 1) ** 2]]
         scl_rows = [mscale.to(dtype), mask.to(dtype)]
@@ -139,10 +139,9 @@ def pme_real_energy(positions, box, pairs, q_global, u_ind_harm, pol, tholes,
                      tholes.to(dtype)[:, None]]
             scl_rows.append(scale_for_distance(p_scales, nbond).to(dtype))
         packed = torch.cat(cols, dim=1)
-        e = pair_energies(
-            packed.index_select(0, i), packed.index_select(0, j),
-            torch.stack(scl_rows), _pair_scalars(kappa, box), lmax,
-            "pol" if lpol else "perm", method="cuda")
+        e = pair_energies_indexed(
+            packed, i, j, torch.stack(scl_rows), _pair_scalars(kappa, box),
+            lmax, "pol" if lpol else "perm")
         return compensated_sum(e) if compensated else e.sum()
 
     r, qi_i, qi_j, ui, uj = realspace.qi_pair_components(
@@ -181,10 +180,9 @@ def pme_real_uu_energy(positions, box, pairs, u_ind_harm, pol, tholes,
         dtype = positions.dtype
         packed = torch.cat([positions, u_ind_harm, pol.to(dtype)[:, None],
                             tholes.to(dtype)[:, None]], dim=1)
-        e = pair_energies(
-            packed.index_select(0, i), packed.index_select(0, j),
-            torch.stack([pscale.to(dtype), mask.to(dtype)]),
-            _pair_scalars(kappa, box), 1, "uu", method="cuda")
+        e = pair_energies_indexed(
+            packed, i, j, torch.stack([pscale.to(dtype), mask.to(dtype)]),
+            _pair_scalars(kappa, box), 1, "uu")
         return e.sum()
 
     dx, dy, dz, r, rinv, _, _ = realspace.pair_displacement_components(

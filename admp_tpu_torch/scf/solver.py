@@ -17,7 +17,7 @@ starting residual). ``pcg_fixed`` runs a fixed count with no sync.
 A w = g and propagates w into r0 and -vjp_theta[A(theta)(u* - u0)](w) into
 the parameters theta. Its backward differentiates the matvec once more, so it
 needs a twice-differentiable matvec: the plain path, or the pair kernel with
-its Hessian-vector backward (ops/cuda/pairs.PairBwdFn).
+its Hessian-vector backward (ops/cuda/pairs.PairTableBwdFn).
 
 Its backward is differentiable where admp_tpu's is, with admp_tpu's
 semantics (its custom_vjp backward, admp_tpu/scf/solver.py:224-246,

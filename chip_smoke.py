@@ -235,6 +235,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import inspect
+import itertools
 import json
 import math
 import pathlib
@@ -544,9 +546,10 @@ def write_water_inputs(directory, positions, box):
 # ---------------------------------------------------------------------------
 
 
-def pair_inputs(w, kind):
-    """Gathered pair tables at the main path's shapes (3000 atoms, the full
-    pair capacity), as models/pme builds them."""
+def pair_list_inputs(w, kind):
+    """K1/K2's inputs at the main path's shapes (3000 atoms, the full pair
+    capacity), as models/pme builds them: (the packed (N, F) table, the
+    list's columns i and j, the scale rows, the 19 scalars, lmax)."""
     from admp_tpu_torch.models.pme import _pair_indices, _pair_scalars
     from admp_tpu_torch.ops.exclusions import lookup_topology_distance, scale_for_distance
     from admp_tpu_torch.ops.frames import local_frames_components
@@ -581,17 +584,36 @@ def pair_inputs(w, kind):
         packed = torch.cat(cols, dim=1)
         scl = torch.stack(rows)
         lmax = LMAX
-    return (packed.index_select(0, i).contiguous(),
-            packed.index_select(0, j).contiguous(), scl.contiguous(),
-            _pair_scalars(0.7296, box).contiguous(), lmax)
+    return (packed.contiguous(), i.contiguous(), j.contiguous(),
+            scl.contiguous(), _pair_scalars(0.7296, box).contiguous(), lmax)
+
+
+def pair_inputs(w, kind):
+    """K3/K3b's gathered pair tables at the main path's shapes: rows
+    table[i], table[j] of pair_list_inputs, the scale rows, the scalars,
+    lmax."""
+    table, i, j, scl, scal, lmax = pair_list_inputs(w, kind)
+    return (table.index_select(0, i).contiguous(),
+            table.index_select(0, j).contiguous(), scl, scal, lmax)
 
 
 def check_pairs(w, record):
+    """K1 and K2 (the packed table read through the pair list, K2's row
+    gradients added by atomics) at the main path's shapes, on the i-sorted
+    list and on the same list shuffled: the energies against the plain
+    version on the gathered rows, K2's gradients of the table, the scale
+    rows and the scalars against autograd of it and index_add."""
     from admp_tpu_torch.ops.cuda import pairs as P
 
-    for kind in ("pol", "uu", "perm"):
-        g_i, g_j, scl, scal, lmax = pair_inputs(w, kind)
-        e_k = P.launch_pair_fwd(g_i, g_j, scl, scal, lmax, kind)
+    for kind, order in itertools.product(("pol", "uu", "perm"),
+                                         ("sorted", "shuffled")):
+        table, i, j, scl, scal, lmax = pair_list_inputs(w, kind)
+        if order == "shuffled":
+            perm = torch.randperm(i.shape[0], device=i.device, generator=(
+                torch.Generator(device=i.device).manual_seed(4)))
+            i, j, scl = i[perm], j[perm], scl[:, perm].contiguous()
+        g_i, g_j = table.index_select(0, i), table.index_select(0, j)
+        e_k = P.launch_pair_fwd(table, i, j, scl, scal, lmax, kind)
         e_p = P.pair_energies_torch(g_i, g_j, scl, scal, lmax, kind)
         e_64 = P.pair_energies_torch(g_i.double(), g_j.double(), scl.double(),
                                      scal.double(), lmax, kind)
@@ -605,18 +627,21 @@ def check_pairs(w, record):
             ((e_k - e_p).abs()
              / (TOL_PAIR_E * e_p.abs() + 1e-6 * e_max)).max())
         e_abs = float((e_k - e_p).abs().max())
-        log(f"pair {kind:4s}: max|e| {e_max:.4e}; max |e - e_f64| kernel "
+        log(f"pair {kind:4s} {order}: max|e| {e_max:.4e}; max |e - e_f64| "
+            "kernel "
             f"{float((e_k.double() - e_64).abs().max()):.3e}, plain f32 "
             f"{float((e_p.double() - e_64).abs().max()):.3e}")
         rng = np.random.default_rng(3)
         ct = torch.tensor(rng.uniform(0.5, 1.5, g_i.shape[0]),
                           device=g_i.device, dtype=torch.float32)
-        outs_k = P.launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
-        leaves = [t.clone().requires_grad_(True) for t in (g_i, g_j, scl, scal)]
-        e_leaf = P.pair_energies_torch(*leaves, lmax, kind)
+        outs_k = P.launch_pair_bwd(table, i, j, scl, scal, ct, lmax, kind)
+        leaves = [t.clone().requires_grad_(True) for t in (table, scl, scal)]
+        e_leaf = P.pair_energies_torch(
+            leaves[0].index_select(0, i), leaves[0].index_select(0, j),
+            *leaves[1:], lmax, kind)
         outs_p = torch.autograd.grad((e_leaf * ct).sum(), leaves)
         torch.cuda.synchronize()
-        names = ("d_gi", "d_gj", "d_scl", "d_scal")
+        names = ("d_table", "d_scl", "d_scal")
         # the mask row has no gradient; compare the differentiable rows
         errs = {}
         for nm, a, b in zip(names, outs_k, outs_p):
@@ -625,16 +650,17 @@ def check_pairs(w, record):
                 a, b = a[rows], b[rows]
             errs[nm] = rel_rmse(a, b)
         g_abs = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
-        log(f"pair {kind:4s} C={g_i.shape[0]} F={g_i.shape[1]}: energy max "
+        log(f"pair {kind:4s} {order} N={table.shape[0]} C={i.shape[0]} "
+            f"F={table.shape[1]}: energy max "
             f"rel err {e_rel:.3e} (abs {e_abs:.3e}); grad rel RMSE "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-        require(e_rel < TOL_PAIR_E, f"pair {kind} energies {e_rel}")
+        require(e_rel < TOL_PAIR_E, f"pair {kind} {order} energies {e_rel}")
         for nm, v in errs.items():
-            require(v < TOL_PAIR_GRAD, f"pair {kind} {nm} {v}")
-        if kind == "pol":
+            require(v < TOL_PAIR_GRAD, f"pair {kind} {order} {nm} {v}")
+        if kind == "pol" and order == "sorted":
             record["pair_fwd"]["max_abs_err"] = e_abs
             record["pair_bwd"]["max_abs_err"] = g_abs
-            record["_pair_inputs"] = (g_i, g_j, scl, scal, lmax, ct)
+            record["_pair_inputs"] = (table, i, j, scl, scal, lmax, ct)
 
 
 def hvp_ok(k, p32, p64):
@@ -4240,20 +4266,26 @@ def launcher_host_us(S, P, dev, rounds=5, n=1000, parts=False):
     bins = S.tile_bins(m_u0, grid98, S.TILE, 6)
     calls["spread_tiled (6, 1) 98k"] = functools.partial(
         S.launch_spread_tiled, bins, q, grid98, 6)
-    # 'pol' lmax 2 tables: positions in a 10 A cubic box, unmasked pairs
+    # 'pol' lmax 2 tables: positions in a 10 A cubic box, unmasked pairs;
+    # K1/K2 read them as one table, pair p at rows p and c + p (an older
+    # tree's K1/K2 launchers, under --launchers, take the two tables)
     c = 4096
     f32 = dict(device=dev, dtype=torch.float32)
     g = [torch.tensor(rng.standard_normal((c, 17)), **f32) for _ in range(2)]
     for t in g:
         t[:, :3] = torch.tensor(rng.uniform(0, 10, (c, 3)), **f32)
+    idx = torch.arange(c, device=dev)
+    listed = (torch.cat(g), idx, idx + c)
+    if "table" not in inspect.signature(P.launch_pair_fwd).parameters:
+        listed = g
     scl = torch.ones(3, c, **f32)
     eye = torch.eye(3, **f32).reshape(-1)
     scal = torch.cat([torch.tensor([0.3], **f32), 10 * eye, 0.1 * eye])
     ct = torch.ones(c, **f32)
     calls["pair_fwd (pol, 2)"] = functools.partial(
-        P.launch_pair_fwd, *g, scl, scal, 2, "pol")
+        P.launch_pair_fwd, *listed, scl, scal, 2, "pol")
     calls["pair_bwd (pol, 2)"] = functools.partial(
-        P.launch_pair_bwd, *g, scl, scal, ct, 2, "pol")
+        P.launch_pair_bwd, *listed, scl, scal, ct, 2, "pol")
     calls["pair_hvp (pol, 2)"] = functools.partial(
         P.launch_pair_hvp, *g, scl, scal, ct, *g, scl, scal, 2, "pol")
     times = {k: [] for k in calls}
@@ -4269,40 +4301,6 @@ def launcher_host_us(S, P, dev, rounds=5, n=1000, parts=False):
             times[label].append((time.perf_counter() - t0) / count * 1e6)
             torch.cuda.synchronize()
     return {k: statistics.median(v) for k, v in times.items()}
-
-
-def large_pair_inputs(w):
-    """K2's 'perm' tables at the 98k step's first configuration: lmax 2,
-    its sparse exclusions and cell-list pair slots (1,703,936), the
-    fluctuating multipoles in the global frame."""
-    from admp_tpu_torch.examples.fluctuating_multipoles import (
-        fluctuating_q_local,
-    )
-    from admp_tpu_torch.models.pme import _pair_indices, _pair_scalars
-    from admp_tpu_torch.ops.exclusions import (
-        as_covalent_map,
-        lookup_topology_distance,
-        scale_for_distance,
-    )
-    from admp_tpu_torch.ops.frames import local_frames_components
-    from admp_tpu_torch.ops.harmonics import rot_local2global_components
-
-    s = w["sys"]
-    pos, box = w["positions"], w["box"]
-    dev = pos.device
-    i, j, mask = _pair_indices(w["pairs"], pos.shape[0])
-    cov = as_covalent_map(w["sparse"], dev)
-    mscale = scale_for_distance(w["scales"], lookup_topology_distance(cov, i, j))
-    frames = local_frames_components(
-        pos, box, torch.as_tensor(s["axis_types"], device=dev),
-        torch.as_tensor(s["axis_indices"], device=dev))
-    qg = rot_local2global_components(fluctuating_q_local(pos, w["q_cart"]),
-                                     frames, LMAX)
-    packed = torch.cat([pos, qg], dim=1)
-    return (packed.index_select(0, i).contiguous(),
-            packed.index_select(0, j).contiguous(),
-            torch.stack([mscale, mask.float()]).contiguous(),
-            _pair_scalars(0.7296, box).contiguous(), LMAX)
 
 
 def device_by_kernel(fn, n=20):
@@ -4325,21 +4323,21 @@ def device_by_kernel(fn, n=20):
 
 
 def kernels_against(others, dev, card, repeats=5):
-    """Device ms per call of K2-K7 from this tree's sources and from those
+    """Device ms per call of K3-K7 from this tree's sources and from those
     of each checkout in ``others`` (built there by its own build.py, all at
     once, and loaded beside this tree's: the C interfaces are the same), on
     the same inputs in one process, the trees taken in turn, median of
-    ``repeats`` profiles each, every call checked first: K2 'pol' at the MD
-    shapes and 'perm' at 98k (every output within TOL_PAIR_GRAD relative
-    RMSE of autograd of the plain version), K3 'pol', 'uu' and 'perm' at the
-    MD shapes (every output under K3's float64 gate, hvp_ok), K4 at the MD
+    ``repeats`` profiles each, every call checked first: K3 'pol', 'uu' and
+    'perm' at the MD shapes (every output under K3's float64 gate, hvp_ok), K4 at the MD
     shapes (6, 1), the full force field's (4, 3) and 98k on 320^3 (within
     TOL_SPREAD of the plain spread), K5 at 98k on 320^3 and 256^3 (each
     tree's mesh within TOL_SPREAD of this tree's), K6 at the MD shapes, at
     the full force field's (4, 3) and at 98k on 320^3 and 256^3, K7 at 98k
     on 320^3 and 256^3 (K6 and K7 bit for bit against the plain gather).
     Logged, with the registers and spills of every tree's K2, K3, K4 and
-    K7."""
+    K7. K2 is not timed here: its C entry reads the packed table through
+    the pair list, which older trees' K2 entries (gathered rows) do not;
+    the kernels line of a full run times it."""
     from admp_tpu_torch.ops.cuda import build, pairs as PP, spread as S
 
     names = ("pairs", "pair_hvp", "spread", "spread_tiled")
@@ -4382,7 +4380,6 @@ def kernels_against(others, dev, card, repeats=5):
     spreads = [("K4 MD (6, 1)", m_md, q_md, w["grid"], 6),
                (f"K4 full FF ({DISP_ORDER}, 3)", m_ff, q_ff, (K_FF,) * 3,
                 DISP_ORDER)]
-    pair_cases = [("K2 MD 'pol'", "pol", pair_inputs(w, "pol"))]
     hvp_cases = [(f"K3 MD '{kind}'", kind, pair_inputs(w, kind))
                  for kind in ("pol", "uu", "perm")]
     w98 = build_large(dev)
@@ -4397,7 +4394,6 @@ def kernels_against(others, dev, card, repeats=5):
         gathers.append((f"K7 98k {k}^3 (6, 1)", m98, bins, mesh))
         if k == K98:
             spreads.append((f"K4 98k {k}^3 (6, 1)", m98, q98, grid, 6))
-    pair_cases.append(("K2 98k 'perm'", "perm", large_pair_inputs(w98)))
 
     def gather(lib, m_u0, mesh, order, out):
         return lambda: lib["spread"].admp_gather(
@@ -4424,12 +4420,6 @@ def kernels_against(others, dev, card, repeats=5):
             P(bins.offsets.data_ptr()), P(mesh.data_ptr()),
             P(out.data_ptr()), mesh.shape[0], 6, *mesh.shape[1:], *S.TILE,
             stream)
-
-    def pair_bwd(lib, tables, ct, kind, outs):
-        g_i, g_j, scl, scal, lmax = tables
-        return lambda: lib["pairs"].admp_pair_bwd(
-            *(P(t.data_ptr()) for t in (g_i, g_j, scl, scal, ct, *outs)),
-            g_i.shape[0], PP.KINDS[kind], lmax, stream)
 
     def pair_hvp(lib, tables, ct, cs, kind, outs):
         g_i, g_j, scl, scal, lmax = tables
@@ -4490,31 +4480,6 @@ def kernels_against(others, dev, card, repeats=5):
         scale = float(meshes[0].abs().max())
         require(all(float((m - meshes[0]).abs().max()) <= TOL_SPREAD * scale
                     for m in meshes), f"{label}: the meshes differ")
-    for label, kind, tables in pair_cases:
-        g_i, g_j, scl, scal, lmax = tables
-        ct = torch.tensor(rng.uniform(0.5, 1.5, g_i.shape[0]), device=dev,
-                          dtype=torch.float32)
-        leaves = [t.clone().requires_grad_(True) for t in tables[:4]]
-        ref = torch.autograd.grad((PP.pair_energies_torch(
-            *leaves, lmax, kind) * ct).sum(), leaves)
-        n_blocks = -(-g_i.shape[0] // 128)  # admp_pair_block_size()
-        rows = [0, 2] if kind == "pol" else [0]
-        for name, lib in libs.items():
-            outs = (torch.empty_like(g_i), torch.empty_like(g_j),
-                    torch.empty_like(scl),
-                    torch.empty(n_blocks, PP.N_SCAL, device=dev))
-            calls[label, name] = pair_bwd(lib, tables, ct, kind, outs)
-            require(calls[label, name]() == 0, f"{label} of {name}: launch")
-            torch.cuda.synchronize()
-            got = (outs[0], outs[1], outs[2][rows], outs[3].sum(dim=0))
-            want = (ref[0], ref[1], ref[2][rows], ref[3])
-            errs = [rel_rmse(a, b) for a, b in zip(got, want)]
-            log(f"[{card}] {label} C={g_i.shape[0]} of {name}: rel RMSE vs "
-                "autograd d_gi, d_gj, d_scl, d_scal " + ", ".join(
-                    f"{e:.3e}" for e in errs))
-            require(all(e < TOL_PAIR_GRAD for e in errs),
-                    f"{label} of {name}: {errs}")
-        del ref, leaves
     for label, kind, tables in hvp_cases:
         g_i, g_j, scl, scal, lmax = tables
         c = g_i.shape[0]
@@ -4561,9 +4526,14 @@ def time_kernels(record):
     (where there is one) at the main path's shapes, and its bound."""
     from admp_tpu_torch.ops.cuda import pairs as P
 
-    g_i, g_j, scl, scal, lmax, ct = record.pop("_pair_inputs")
-    leaves = [t.clone().requires_grad_(True) for t in (g_i, g_j, scl, scal)]
-    e = (P.pair_energies_torch(*leaves, lmax, "pol") * ct).sum()
+    table, i, j, scl, scal, lmax, ct = record.pop("_pair_inputs")
+    g_i, g_j = table.index_select(0, i), table.index_select(0, j)
+    # the plain route: the gathers, the plain version, autograd (the
+    # gathers' backward an index_add)
+    leaves = [t.clone().requires_grad_(True) for t in (table, scl, scal)]
+    e = (P.pair_energies_torch(leaves[0].index_select(0, i),
+                               leaves[0].index_select(0, j), *leaves[1:],
+                               lmax, "pol") * ct).sum()
     x, hct, cs, hl = record.pop("_hvp_inputs")
     host = lambda ts: [t.detach().cpu() for t in ts]  # noqa: E731
     hx, hcs = host(x), host(cs)
@@ -4574,19 +4544,28 @@ def time_kernels(record):
         torch.autograd.grad((P.pair_energies_torch(*lv, lmax, "pol")
                              * h_ct).sum(), lv)
 
-    tables = nbytes(g_i, g_j, scl, scal)
+    # K1 reads the table, the list's two columns, the scale rows and the
+    # scalars once and writes C energies (as many bytes as ct); K2 reads
+    # them and ct, writes the scale rows' gradient and adds into the (N, F
+    # rounded up to 4) gradient table: each of its rows written at least
+    # once (its memset outside the kernel, not counted)
+    inputs = nbytes(table, i, j, scl, scal)
+    d_table = 4 * table.shape[0] * -(-table.shape[1] // 4) * 4
     calls = {
         "pair_fwd": (
-            lambda: P.launch_pair_fwd(g_i, g_j, scl, scal, lmax, "pol"),
-            lambda: P.pair_energies_torch(g_i, g_j, scl, scal, lmax, "pol"),
+            lambda: P.launch_pair_fwd(table, i, j, scl, scal, lmax, "pol"),
+            lambda: P.pair_energies_torch(table.index_select(0, i),
+                                          table.index_select(0, j), scl,
+                                          scal, lmax, "pol"),
             None,
-            bound(tables + nbytes(ct), count_ops(
+            bound(inputs + nbytes(ct), count_ops(
                 lambda: P.pair_energies_torch(*h_tab, lmax, "pol")))),
         "pair_bwd": (
-            lambda: P.launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax, "pol"),
+            lambda: P.launch_pair_bwd(table, i, j, scl, scal, ct, lmax,
+                                      "pol"),
             lambda: torch.autograd.grad(e, leaves, retain_graph=True),
             None,
-            bound(2 * tables + nbytes(ct), count_ops(host_bwd))),
+            bound(inputs + nbytes(ct, scl) + d_table, count_ops(host_bwd))),
         "pair_hvp": (
             lambda: P.launch_pair_hvp(*x, hct, *cs, hl, "pol"),
             lambda: P.pair_hvp_torch(*x, hct, *cs, hl, "pol"),

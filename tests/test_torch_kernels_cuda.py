@@ -34,7 +34,18 @@ pairs, the frame guard, masked pairs, zero-pol sites, the pscale sigmoid,
 the Thole cut). K3b, K3's backward (the pair energies' third derivative),
 at the 3000-atom pair count for 'pol' and 'uu' against the plain third
 derivative in float64 under K3's gate, and through autograd on all three
-kinds (a fourth derivative raises). The precision modes: the double-single arithmetic, FFTs and
+kinds (a fourth derivative raises), taken through the engines' autograd
+(pair_energies_indexed). K1/K2 read the packed table through the pair
+list (K2's row gradients added by atomics); the tests above give them the
+gathered rows as a table read through an identity list (_stacked). On the
+3,000- and 98,304-atom water boxes with the benchmark's 5 A cell lists,
+i-sorted and shuffled, for all seven (kind, lmax): K1 against the plain
+version on the gathered rows (and K1 on those rows bit for bit), K2
+within 1e-5 relative RMSE of autograd of the plain version and index_add;
+pairs with an index outside [0, N) (the raw list's padding, -1) masked;
+their autograd and its double backward (the gathered K3) against the
+kernels on the gathered rows, with the counters pairs.indexed and
+pairs.gathered. The precision modes: the double-single arithmetic, FFTs and
 engine (plain PyTorch operations, where a fused multiply-add or a flush to
 zero would break the error-free transforms) against float64 with admp_tpu's
 bounds (tests/test_ds.py), the DS mesh's quantized pass the same bits in any
@@ -138,17 +149,40 @@ def _tables(dev, kind, lmax, n_side=4):
             _pair_scalars(0.73, box).contiguous(), ct)
 
 
+def _stacked(g_i, g_j):
+    """The table (g_i; g_j) and the list that reads pair p from its rows p
+    and C + p: K1/K2 on it take the gathered rows as they are, and K2 adds
+    each row's gradient once."""
+    c = g_i.shape[0]
+    idx = torch.arange(c, device=g_i.device)
+    return torch.cat([g_i, g_j]).contiguous(), idx, idx + c
+
+
+def _pair_fwd(g_i, g_j, scl, scal, lmax, kind):
+    """K1 on gathered rows (_stacked)."""
+    return P.launch_pair_fwd(*_stacked(g_i, g_j), scl, scal, lmax, kind)
+
+
+def _pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind):
+    """K2 on gathered rows (_stacked): the gradients of g_i, g_j, the scale
+    rows and the scalars."""
+    d_tab, d_scl, d_scal = P.launch_pair_bwd(*_stacked(g_i, g_j), scl, scal,
+                                             ct, lmax, kind)
+    c = g_i.shape[0]
+    return d_tab[:c], d_tab[c:], d_scl, d_scal
+
+
 @pytest.mark.parametrize("kind,lmax", [("perm", 0), ("perm", 1), ("perm", 2),
                                        ("pol", 0), ("pol", 1), ("pol", 2),
                                        ("uu", 1)])
 def test_pair_kernels_match_plain(dev, kind, lmax):
     g_i, g_j, scl, scal, ct = _tables(dev, kind, lmax)
-    e_k = P.launch_pair_fwd(g_i, g_j, scl, scal, lmax, kind)
+    e_k = _pair_fwd(g_i, g_j, scl, scal, lmax, kind)
     e_p = P.pair_energies_torch(g_i, g_j, scl, scal, lmax, kind)
     torch.cuda.synchronize()
     floor = 1e-6 * float(e_p.abs().max())
     assert bool(((e_k - e_p).abs() <= 1e-5 * e_p.abs() + floor).all())
-    out_k = P.launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
+    out_k = _pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
     leaves = [t.clone().requires_grad_(True) for t in (g_i, g_j, scl, scal)]
     out_p = torch.autograd.grad(
         (P.pair_energies_torch(*leaves, lmax, kind) * ct).sum(), leaves)
@@ -221,7 +255,7 @@ def test_pair_backward_takes_autograds_side_of_each_branch(dev, kind, lmax):
     version in float32, every output within 1e-5 relative RMSE; K3 on the
     same tables under its own gate against the plain version in float64."""
     g_i, g_j, scl, scal, ct = _branch_tables(dev, kind, lmax)
-    out_k = P.launch_pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
+    out_k = _pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
     leaves = [t.clone().requires_grad_(True) for t in (g_i, g_j, scl, scal)]
     out_p = torch.autograd.grad(
         (P.pair_energies_torch(*leaves, lmax, kind) * ct).sum(), leaves)
@@ -288,8 +322,8 @@ def test_pair_kernel_autograd_is_first_order(dev, kind, lmax):
     v = _directions(x, 6, kind)
 
     def phi(t):
-        outs = P.launch_pair_bwd(*(a + t * b for a, b in zip(x, v)), ct,
-                                 lmax, kind)
+        outs = _pair_bwd(*(a + t * b for a, b in zip(x, v)), ct, lmax,
+                         kind)
         return sum(float((o.double() * c.double()).sum())
                    for o, c in zip(outs, cs))
 
@@ -301,25 +335,35 @@ def test_pair_kernel_autograd_is_first_order(dev, kind, lmax):
              for o, d in zip(out_k[:4], v))
     assert abs(fd - an) <= 1e-2 * abs(an), (fd, an)
 
-    leaves = [t.clone().requires_grad_(True) for t in x]
-    e = P.pair_energies(*leaves, lmax, kind, method="cuda")
+    # the engines' autograd (pair_energies_indexed) on the table whose rows
+    # are (g_i; g_j), pair p reading rows p and C + p: its derivatives are
+    # the gathered kernels' outputs, stacked the same way
+    c = g_i.shape[0]
+    idx = torch.arange(c, device=dev)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (torch.cat([g_i, g_j]), scl, scal)]
+    e = P.pair_energies_indexed(leaves[0], idx, idx + c, *leaves[1:], lmax,
+                                kind)
     grads = torch.autograd.grad((e * ct).sum(), leaves, create_graph=True)
-    hvp = torch.autograd.grad(sum((g * c).sum() for g, c in zip(grads, cs)),
+    c_tab = (torch.cat(cs[:2]), cs[2], cs[3])
+    hvp = torch.autograd.grad(sum((g * d).sum() for g, d in zip(grads, c_tab)),
                               leaves, create_graph=True)
-    for a, b in zip(hvp, out_k[:4]):
+    for a, b in zip((hvp[0][:c], hvp[0][c:], *hvp[1:]), out_k[:4]):
         assert torch.equal(a, b)
     before = P.launch_pair_third.by_kind[kind]
-    third = torch.autograd.grad(hvp[0].sum(), leaves, create_graph=True)
+    third = torch.autograd.grad(hvp[0][:c].sum(), leaves, create_graph=True)
     assert P.launch_pair_third.by_kind[kind] - before == 1
     h = [torch.ones_like(g_i), torch.zeros_like(g_j), torch.zeros_like(scl),
          torch.zeros_like(scal), torch.zeros_like(ct)]
     t_64 = P.pair_third_torch(*(t.double() for t in (*x, ct, *cs, *h)),
                               lmax, kind)
     t_32 = P.pair_third_torch(*x, ct, *cs, *h, lmax, kind)
-    for name, a, b, c in zip(("g_i", "g_j", "scl", "scal"), third, t_32, t_64):
+    for name, a, b, d in zip(("g_i", "g_j", "scl", "scal"),
+                             (third[0][:c], third[0][c:], *third[1:]), t_32,
+                             t_64):
         assert bool(torch.isfinite(a).all()), name
-        tol = max(1e-4, 2 * _rel(b, c))
-        assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
+        tol = max(1e-4, 2 * _rel(b, d))
+        assert _rel(a, d) <= tol, (name, _rel(a, d), tol)
     with pytest.raises(RuntimeError):
         torch.autograd.grad(third[0].sum(), leaves[0])
 
@@ -349,6 +393,193 @@ def test_pair_third_matches_plain_f64(dev, kind, lmax):
         assert bool(torch.isfinite(a).all()), name
         tol = max(1e-4, 2 * _rel(b, c))
         assert _rel(a, c) <= tol, (name, _rel(a, c), tol)
+
+
+PAIR_KINDS = [("perm", 0), ("perm", 1), ("perm", 2), ("pol", 0), ("pol", 1),
+              ("pol", 2), ("uu", 1)]
+_WATER_PAIRS = {}
+
+
+def _water_pairs(dev, n_side):
+    """The n_side^3 water box on the card with its cell-list pairs at 5 A
+    (the benchmark's lists: i-sorted, padding last) and, per pair, its
+    mscale and pscale rows as the engines take them (random levels; no
+    covalent map at 98,304 atoms): cached per size."""
+    key = (str(dev), n_side)
+    if key not in _WATER_PAIRS:
+        s = water_system(n_side=n_side, spacing=3.1, jitter=0.12, seed=4,
+                         exclusions=None)
+        f = lambda x: torch.tensor(x, device=dev, dtype=torch.float32)  # noqa: E731
+        pos, box = f(s["positions"]), f(s["box"])
+        pairs = neighbor_list_cell(pos, box, 5.0).pairs
+        n = pos.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(n_side)
+        rand = lambda *shape: torch.rand(*shape, device=dev, generator=gen)  # noqa: E731
+        _WATER_PAIRS[key] = dict(
+            pos=pos, box=box, pairs=pairs, pol=f(s["pol"])[:, None],
+            th=f(s["tholes"])[:, None], q=(rand(n, 9) - 0.5) * 0.6,
+            u=(rand(n, 3) - 0.5) * 0.1, sc=torch.where(
+                rand(pairs.shape[0]) < 0.1, 0.3, 1.0),
+            ct=0.5 + rand(pairs.shape[0]))
+    return _WATER_PAIRS[key]
+
+
+def _indexed_inputs(dev, kind, lmax, n_side, order):
+    """(table, i, j, scl, scal, ct) of the indexed kernels on the water box
+    of _water_pairs: the packed table of the kind's width, the list's
+    columns (its rows shuffled for order 'shuffled'), the scale rows and
+    the 19 scalars."""
+    w = _water_pairs(dev, n_side)
+    pairs, sc, ct = w["pairs"], w["sc"], w["ct"]
+    if order == "shuffled":
+        perm = torch.randperm(pairs.shape[0], device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(5))
+        pairs, sc, ct = pairs[perm], sc[perm], ct[perm]
+    i, j, mask = _pair_indices(pairs, w["pos"].shape[0])
+    rows = [sc, mask.float()]
+    if kind == "uu":
+        table = torch.cat([w["pos"], w["u"], w["pol"], w["th"]], 1)
+    else:
+        table = torch.cat([w["pos"], w["q"][:, : (lmax + 1) ** 2]], 1)
+        if kind == "pol":
+            table = torch.cat([table, w["u"], w["pol"], w["th"]], 1)
+            rows.append(sc.flip(0))
+    return (table.contiguous(), i.contiguous(), j.contiguous(),
+            torch.stack(rows).contiguous(),
+            _pair_scalars(0.73, w["box"]).contiguous(), ct.contiguous())
+
+
+@pytest.mark.parametrize("n_side", [10, 32])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("kind,lmax", PAIR_KINDS)
+def test_indexed_pair_forward_is_the_gathered_bitwise(dev, kind, lmax, order,
+                                                      n_side):
+    """K1 (rows table[i], table[j] read through the pair list) on the 3,000-
+    and 98,304-atom water boxes: K1 on the gathered rows (_stacked) bit for
+    bit, and against the plain version on those rows in float64 within
+    max(1e-6, 2 x the plain float32 version's) relative RMSE (over 3.4M
+    pairs a per-pair bound meets pairs whose terms cancel); one launch
+    counted per call."""
+    table, i, j, scl, scal, _ = _indexed_inputs(dev, kind, lmax, n_side,
+                                                order)
+    before = P.launch_pair_fwd.by_kind[kind]
+    e_k = P.launch_pair_fwd(table, i, j, scl, scal, lmax, kind)
+    assert P.launch_pair_fwd.by_kind[kind] - before == 1
+    g_i, g_j = table[i].contiguous(), table[j].contiguous()
+    e_g = _pair_fwd(g_i, g_j, scl, scal, lmax, kind)
+    e_p = P.pair_energies_torch(g_i, g_j, scl, scal, lmax, kind)
+    e_64 = P.pair_energies_torch(g_i.double(), g_j.double(), scl.double(),
+                                 scal.double(), lmax, kind)
+    torch.cuda.synchronize()
+    assert torch.equal(e_k, e_g)
+    assert _rel(e_k, e_64) <= max(1e-6, 2 * _rel(e_p, e_64)), (
+        _rel(e_k, e_64), _rel(e_p, e_64))
+
+
+@pytest.mark.parametrize("n_side", [10, 32])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("kind,lmax", PAIR_KINDS)
+def test_indexed_pair_backward_matches_gathered_and_index_add(
+        dev, kind, lmax, order, n_side):
+    """K2 (the rows' gradients added into the table's by the kernel's
+    atomics: runs of equal i summed per warp) against autograd of the plain
+    version on the gathered rows and index_add, on the 3,000- and
+    98,304-atom water boxes, i-sorted and shuffled: the table's, the scale
+    rows' and the scalars' gradients within 1e-5 relative RMSE; each
+    gradient left out when not asked for."""
+    table, i, j, scl, scal, ct = _indexed_inputs(dev, kind, lmax, n_side,
+                                                 order)
+    d_tab, d_scl, d_scal = P.launch_pair_bwd(table, i, j, scl, scal, ct,
+                                             lmax, kind)
+    x = [t.clone().requires_grad_(True) for t in (table, scl, scal)]
+    e = P.pair_energies_torch(x[0][i], x[0][j], x[1], x[2], lmax, kind)
+    g_tab, g_scl, g_scal = torch.autograd.grad((e * ct).sum(), x)
+    torch.cuda.synchronize()
+    assert d_tab.shape == table.shape
+    for name, a, b in (("table", d_tab, g_tab), ("scl", d_scl, g_scl),
+                       ("scal", d_scal, g_scal)):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) < 1e-5, (name, _rel(a, b))
+    only = P.launch_pair_bwd(table, i, j, scl, scal, ct, lmax, kind,
+                             (True, False, False))
+    assert only[1] is None and only[2] is None
+    assert _rel(only[0], g_tab) < 1e-5
+
+
+@pytest.mark.parametrize("kind,lmax", [("perm", 2), ("pol", 2), ("uu", 1)])
+def test_indexed_pair_kernels_mask_pairs_outside_the_table(dev, kind, lmax):
+    """The raw cell list of the 3,000-atom box (its padding slots read
+    index N) with a few i set to -1 and a few j to N on unmasked pairs: K1
+    and K2 mask each pair with an index outside [0, N), as the clamped list
+    with those pairs' mask row 0 reads: energies, scale rows' and scalars' gradients bit for bit, the
+    table's within 1e-5 relative RMSE (atomic sums); so does the plain
+    route on the same tensors moved to the CPU."""
+    table, i, j, scl, scal, ct = _indexed_inputs(dev, kind, lmax, 10,
+                                                 "sorted")
+    raw = _water_pairs(dev, 10)["pairs"]  # the list that i, j clamp
+    n = table.shape[0]
+    i_raw, j_raw = raw[:, 0].long().clone(), raw[:, 1].long().clone()
+    i_raw[::97] = -1
+    j_raw[5::89] = n  # beside the padding's, on unmasked pairs
+    outside = (i_raw < 0) | (i_raw >= n) | (j_raw < 0) | (j_raw >= n)
+    scl_in = scl.clone()
+    scl_in[1] = torch.where(outside, 0.0, scl[1])
+    i_in, j_in = i_raw.clamp(0, n - 1), j_raw.clamp(0, n - 1)
+    e_k = P.launch_pair_fwd(table, i_raw, j_raw, scl, scal, lmax, kind)
+    e_in = P.launch_pair_fwd(table, i_in, j_in, scl_in, scal, lmax, kind)
+    b_k = P.launch_pair_bwd(table, i_raw, j_raw, scl, scal, ct, lmax, kind)
+    b_in = P.launch_pair_bwd(table, i_in, j_in, scl_in, scal, ct, lmax, kind)
+    torch.cuda.synchronize()
+    assert torch.equal(e_k, e_in) and bool((e_k[outside] == 0).all())
+    assert _rel(b_k[0], b_in[0]) < 1e-5
+    assert torch.equal(b_k[1], b_in[1]) and torch.equal(b_k[2], b_in[2])
+    cpu = [t.cpu() for t in (table, i_raw, j_raw, scl, scal)]
+    e_p = P.pair_energies_indexed(*cpu, lmax, kind)
+    floor = 1e-6 * float(e_p.abs().max())
+    assert bool(((e_k.cpu() - e_p).abs() <= 1e-5 * e_p.abs() + floor).all())
+
+
+@pytest.mark.parametrize("kind,lmax", [("perm", 2), ("pol", 2), ("uu", 1)])
+def test_indexed_pair_functions_on_the_kernels(dev, kind, lmax):
+    """pair_energies_indexed on the card, on a shuffled list: forward and
+    first derivative on K1/K2 (counted as ``pairs.indexed``), the double
+    backward on the gathered K3 (counted as ``pairs.gathered``), against K1,
+    K2 and K3 on the gathered rows (_stacked) with index_add: energies bit
+    for bit, the derivatives within 1e-5 relative RMSE (atomic sums)."""
+    from admp_tpu_torch.utils import profiling
+
+    table, i, j, scl, scal, ct = _indexed_inputs(dev, kind, lmax, 10,
+                                                 "shuffled")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cs = [torch.randn(t.shape, device=dev, generator=gen)
+          for t in (table, scl, scal)]
+    if kind != "perm":  # off the Thole columns of zero-pol sites
+        cs[0][table[:, -2] == 0, -2:] = 0.0
+    x = [t.clone().requires_grad_(True) for t in (table, scl, scal)]
+    profiling.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        e = P.pair_energies_indexed(x[0], i, j, x[1], x[2], lmax, kind)
+        g = torch.autograd.grad((e * ct).sum(), x, create_graph=True)
+        h = torch.autograd.grad(sum((a * b).sum() for a, b in zip(g, cs)), x)
+        counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters["pairs.indexed"] == 2 and counters["pairs.gathered"] == 1
+
+    def scatter(d_gi, d_gj):
+        return torch.zeros_like(table).index_add_(0, i, d_gi).index_add_(
+            0, j, d_gj)
+
+    g_i, g_j = table[i].contiguous(), table[j].contiguous()
+    e_g = _pair_fwd(g_i, g_j, scl, scal, lmax, kind)
+    b = _pair_bwd(g_i, g_j, scl, scal, ct, lmax, kind)
+    k3 = P.launch_pair_hvp(g_i, g_j, scl, scal, ct, cs[0][i].contiguous(),
+                           cs[0][j].contiguous(), cs[1], cs[2], lmax, kind)
+    torch.cuda.synchronize()
+    assert torch.equal(e, e_g)
+    for a, r in zip(g + h, (scatter(*b[:2]), *b[2:], scatter(*k3[:2]),
+                            *k3[2:4])):
+        assert _rel(a, r) < 1e-5, _rel(a, r)
 
 
 @pytest.mark.parametrize("order,channels", [(6, 1), (4, 1), (6, 3), (4, 3)])

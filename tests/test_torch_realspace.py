@@ -21,7 +21,7 @@ from admp_tpu.ops.frames import local_frames_components as j_frames
 from admp_tpu.ops.harmonics import rot_local2global_components as j_l2g
 from admp_tpu.ops.pallas.pairs import pair_perm_energies
 from admp_tpu_torch.models import pme as tpme
-from admp_tpu_torch.ops.cuda.pairs import pair_energies, pair_energies_torch
+from admp_tpu_torch.ops.cuda.pairs import pair_energies_torch
 from torch_port_cases import assert_close, dense_pairs, rel_err, t64, water
 
 KAPPA = 0.68
@@ -142,9 +142,7 @@ def test_block_function_matches_interpret_kernel(kind, lmax):
     ej, gj = jax.value_and_grad(jf, argnums=(0, 1, 2, 3))(
         *[jnp.asarray(x) for x in (g_i, g_j, scl, scal)])
     leaves = [torch.tensor(x, requires_grad=True) for x in (g_i, g_j, scl, scal)]
-    # a CPU tensor takes the plain version, which is what pair_energies_torch is
-    e = pair_energies(*leaves, lmax, kind)
-    assert torch.equal(e, pair_energies_torch(*leaves, lmax, kind))
+    e = pair_energies_torch(*leaves, lmax, kind)
     et = torch.sum(e * torch.as_tensor(ct))
     gt = torch.autograd.grad(et, leaves)
     assert abs(float(et.detach()) - float(ej)) < 2e-6 * abs(float(ej)) + 1e-3
@@ -160,9 +158,13 @@ def test_block_function_matches_interpret_kernel(kind, lmax):
 
 
 def test_pair_kernel_dispatch_on_cpu():
-    g_i, g_j, scl, scal, _ = _kernel_tables("perm", 1)
-    args = [torch.as_tensor(x) for x in (g_i, g_j, scl, scal)]
+    """pme_real_energy's ``pair_kernel`` on CPU tensors: 'cuda' refuses
+    them, 'auto' takes the plain component path, as 'torch' does."""
+    s = _case(seed=4)
+    args = (t64(s["positions"]), t64(s["box"]), torch.as_tensor(s["pairs"]),
+            t64(s["q_global"][:, :4]), None, None, None, t64(M_SCALES), None,
+            torch.as_tensor(s["covalent_map"]), KAPPA, 1, False)
     with pytest.raises(ValueError, match="CUDA"):
-        pair_energies(*args, 1, "perm", method="cuda")
-    plain = pair_energies(*args, 1, "perm", method="torch")
-    assert torch.equal(pair_energies(*args, 1, "perm"), plain)
+        tpme.pme_real_energy(*args, pair_kernel="cuda")
+    plain = tpme.pme_real_energy(*args, pair_kernel="torch")
+    assert torch.equal(tpme.pme_real_energy(*args), plain)

@@ -6,8 +6,10 @@ leaf ranges top-level with the backward's autograd nodes inside the
 ``.bwd`` ranges, the registry's stamps inside the profiler's events), the
 exact adjoint's third derivative traced, the list refresh and the export.
 On the card: the kernels' step traced and untraced, no synchronizing call
-outside a counted ``host.sync`` site, and the frames on K8 still recorded
-as ``frames`` and ``frames.bwd``, with its two launches a step counted."""
+outside a counted ``host.sync`` site, the frames on K8 still recorded as
+``frames`` and ``frames.bwd``, with its two launches a step counted, and
+every real-space pass on the indexed K1/K2 (``pairs.indexed``), none on the
+gathered fallback (``pairs.gathered``)."""
 
 import dataclasses
 import json
@@ -445,3 +447,40 @@ def test_frames_kernel_step_keeps_its_spans():
     assert sum("frames_fwd_kernel" in n for n in names) == 1
     assert sum("frames_bwd_kernel" in n for n in names) == 1
     assert profiling._OPEN == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lpol", [False, True])
+def test_pair_kernels_read_the_table_through_the_list(lpol):
+    """On the card: every real-space pass of a Langevin step takes the
+    indexed K1/K2 (``pairs.indexed``: one K1 and one K2 launch a pass) and
+    none falls back to the gathered layout (``pairs.gathered`` 0). The fixed
+    step has one pass; the polarizable step (the warm-start field, one
+    matvec a PCG iteration, the final energy) 2 'pol' passes and one 'uu'
+    pass an iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from admp_tpu_torch.ops.cuda import pairs as P
+
+    w = _Water(lpol, device=torch.device("cuda", 0), dtype=torch.float32,
+               n_side=10)
+    step, state, gen = w.start()
+    fwd, bwd = dict(P.launch_pair_fwd.by_kind), dict(P.launch_pair_bwd.by_kind)
+    profiling.reset()
+    with _profile():
+        step(state, gen)
+    snap = profiling.snapshot()
+    profiling.reset()
+    launched = {k: (P.launch_pair_fwd.by_kind[k] - fwd[k],
+                    P.launch_pair_bwd.by_kind[k] - bwd[k]) for k in P.KINDS}
+    counters = snap["counters"]
+    assert counters.get("pairs.gathered", 0) == 0
+    if lpol:
+        iters = w.pme.n_cycle
+        assert iters >= 1
+        assert launched == {"perm": (0, 0), "pol": (2, 2),
+                            "uu": (iters, iters)}
+        assert counters["pairs.indexed"] == 2 * (2 + iters)
+    else:
+        assert launched == {"perm": (1, 1), "pol": (0, 0), "uu": (0, 0)}
+        assert counters["pairs.indexed"] == 2

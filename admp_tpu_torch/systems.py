@@ -1,9 +1,13 @@
 """Synthetic example systems (numpy only, no data files): liquid-density MPID
 water boxes, the same arrays as admp_tpu/systems.py builds for the same
 arguments. A copy rather than an import, because admp_tpu imports JAX.
+Also the front end's inputs for such a box: a PDB and the MPID water
+force-field XML.
 """
 
 from __future__ import annotations
+
+import pathlib
 
 import numpy as np
 
@@ -149,3 +153,80 @@ def write_water_pdb(path, positions, box):
                    names[i % 3][0])
             )
         fh.write("END\n")
+
+
+# MPID_WATER in the units of its force-field XML: multipoles nm-based (the
+# front end scales dipoles by 10 and quadrupoles by 300), polarizabilities in
+# nm^3 (x1000), Thole widths; Tang-Toennies A in kJ/mol (the front end divides
+# by 2625.5), B in 1/nm (x0.0529177249), C6, C8, C10 as the squares of the
+# engine's sqrt coefficients over 1e6, 1e8, 1e10. O is type 380 (bisector
+# frame of its two H), H type 381 (z to O, x to the other H).
+WATER_XML_MULTIPOLES = {
+    "380": dict(c0=-1.0614, dZ=-0.023671684, qXX=0.000150963, qYY=0.00008707,
+                qZZ=-0.000238034, kz="381", kx="-381"),
+    "381": dict(c0=0.5307, kz="380", kx="381"),
+}
+WATER_XML_POL = {"380": dict(pol=0.00088, thole=8.0)}
+WATER_XML_DISP = {  # (a Hartree, b 1/Bohr, q, sqrt C6, sqrt C8, sqrt C10)
+    "380": (458.3777, 2.00095977, -0.741706, 37.19677405, 85.26810658,
+            134.44874488),
+    "381": (0.0317, 1.999519942, 0.370853, 7.6111103, 11.90220148,
+            15.05074749),
+}
+
+
+def water_ff_xml():
+    """The MPID water force field as an XML document (a str): residue HOH
+    with its two O-H bonds, an <ADMPDispForce> and an <ADMPPmeForce>
+    (lmax 2, polarizable), scale factors 0 0 0 1 1."""
+    def scales(prefixes):
+        return "".join(f' {p}Scale1{i}="{v}"' for p in prefixes
+                       for i, v in zip(range(2, 7), (0, 0, 0, 1, 1)))
+
+    disp = "".join(
+        f'    <Atom type="{t}" A="{a * 2625.5!r}" B="{b / 0.0529177249!r}" '
+        f'Q="{q!r}" C6="{c6 * c6 / 1e6!r}" C8="{c8 * c8 / 1e8!r}" '
+        f'C10="{c10 * c10 / 1e10!r}"/>\n'
+        for t, (a, b, q, c6, c8, c10) in WATER_XML_DISP.items())
+    pme = ""
+    for t, m in WATER_XML_MULTIPOLES.items():
+        attrs = " ".join(f'{k}="{v}"' for k, v in m.items())
+        pme += f'    <Atom type="{t}" {attrs}/>\n'
+    for t, p in WATER_XML_POL.items():
+        pme += (f'    <Polarize type="{t}" polarizabilityXX="{p["pol"]}" '
+                f'polarizabilityYY="{p["pol"]}" polarizabilityZZ="{p["pol"]}" '
+                f'thole="{p["thole"]}"/>\n')
+    return (
+        "<ForceField>\n"
+        " <AtomTypes>\n"
+        '  <Type name="380" class="OW" element="O" mass="15.999"/>\n'
+        '  <Type name="381" class="HW" element="H" mass="1.008"/>\n'
+        " </AtomTypes>\n"
+        " <Residues>\n"
+        '  <Residue name="HOH">\n'
+        '   <Atom name="O" type="380"/>\n'
+        '   <Atom name="H1" type="381"/>\n'
+        '   <Atom name="H2" type="381"/>\n'
+        '   <Bond from="0" to="1"/>\n'
+        '   <Bond from="0" to="2"/>\n'
+        "  </Residue>\n"
+        " </Residues>\n"
+        f" <ADMPDispForce{scales('m')}>\n{disp}"
+        " </ADMPDispForce>\n"
+        f' <ADMPPmeForce lmax="2" pmax="10"{scales("mpd")}>\n{pme}'
+        " </ADMPPmeForce>\n"
+        "</ForceField>\n")
+
+
+def write_water_inputs(directory, positions, box):
+    """Write the MPID water XML and a PDB of ``positions`` in ``box`` into
+    ``directory``; returns (xml path, pdb path). A PDB numbers at most
+    9,999 residues, so more waters raise ValueError."""
+    if len(positions) > 3 * 9999:
+        raise ValueError(f"{len(positions) // 3} waters: a PDB holds at "
+                         "most 9,999 residues")
+    directory = pathlib.Path(directory)
+    xml, pdb = directory / "mpid_water.xml", directory / "water.pdb"
+    xml.write_text(water_ff_xml())
+    write_water_pdb(pdb, positions, box)
+    return str(xml), str(pdb)

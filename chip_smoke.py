@@ -250,6 +250,9 @@ import warnings
 import numpy as np
 import torch
 
+from benchmark.counts.opcount import count_ops
+from benchmark.counts.peaks import HBM_BYTES_S, bound_s
+
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 
@@ -327,12 +330,6 @@ TOL_FE = 1e-6
 NVE_STEPS, NVE_DT, TOL_NVE = 50, 5e-5, 0.02
 NPT_SEGMENTS, NPT_STEPS, NPT_DT = 3, 20, 2e-4
 TEMPERATURE, FRICTION, PRESSURE_BAR, MAX_DLNV = 300.0, 10.0, 1.0, 0.02
-
-# the card's published peaks (H100 SXM, at the full 700 W): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
-
 
 def log(msg):
     print(msg, flush=True)
@@ -446,99 +443,6 @@ def pol_args(w, positions, dtype):
     return (c(positions), c(w["box"]), w["pairs"], c(w["q_local"]),
             c(w["pol"]), c(w["tholes"]), c(w["scales"]), c(w["scales"]),
             c(w["scales"]))
-
-
-# ---------------------------------------------------------------------------
-# the front end's input files (phase 3g; the CPU tests use them too)
-# ---------------------------------------------------------------------------
-
-# The MPID water model of admp_tpu_torch/systems.py MPID_WATER in the units of
-# its force-field XML: multipoles nm-based (the front end scales dipoles by
-# 10 and quadrupoles by 300), polarizabilities in nm^3 (x1000), Thole widths;
-# Tang-Toennies A in kJ/mol (the front end divides by 2625.5), B in 1/nm
-# (x0.0529177249), C6, C8, C10 as the squares of the engine's sqrt
-# coefficients over 1e6, 1e8, 1e10. O is type 380 (bisector frame of its two
-# H), H type 381 (z to O, x to the other H).
-WATER_XML_MULTIPOLES = {
-    "380": dict(c0=-1.0614, dZ=-0.023671684, qXX=0.000150963, qYY=0.00008707,
-                qZZ=-0.000238034, kz="381", kx="-381"),
-    "381": dict(c0=0.5307, kz="380", kx="381"),
-}
-WATER_XML_POL = {"380": dict(pol=0.00088, thole=8.0)}
-WATER_XML_DISP = {  # (a Hartree, b 1/Bohr, q, sqrt C6, sqrt C8, sqrt C10)
-    "380": (458.3777, 2.00095977, -0.741706, 37.19677405, 85.26810658,
-            134.44874488),
-    "381": (0.0317, 1.999519942, 0.370853, 7.6111103, 11.90220148,
-            15.05074749),
-}
-
-
-def water_ff_xml():
-    """The MPID water force field as an XML document (a str): residue HOH
-    with its two O-H bonds, an <ADMPDispForce> and an <ADMPPmeForce>
-    (lmax 2, polarizable), scale factors 0 0 0 1 1."""
-    def scales(prefixes):
-        return "".join(f' {p}Scale1{i}="{v}"' for p in prefixes
-                       for i, v in zip(range(2, 7), (0, 0, 0, 1, 1)))
-
-    disp = "".join(
-        f'    <Atom type="{t}" A="{a * 2625.5!r}" B="{b / 0.0529177249!r}" '
-        f'Q="{q!r}" C6="{c6 * c6 / 1e6!r}" C8="{c8 * c8 / 1e8!r}" '
-        f'C10="{c10 * c10 / 1e10!r}"/>\n'
-        for t, (a, b, q, c6, c8, c10) in WATER_XML_DISP.items())
-    pme = ""
-    for t, m in WATER_XML_MULTIPOLES.items():
-        attrs = " ".join(f'{k}="{v}"' for k, v in m.items())
-        pme += f'    <Atom type="{t}" {attrs}/>\n'
-    for t, p in WATER_XML_POL.items():
-        pme += (f'    <Polarize type="{t}" polarizabilityXX="{p["pol"]}" '
-                f'polarizabilityYY="{p["pol"]}" polarizabilityZZ="{p["pol"]}" '
-                f'thole="{p["thole"]}"/>\n')
-    return (
-        "<ForceField>\n"
-        " <AtomTypes>\n"
-        '  <Type name="380" class="OW" element="O" mass="15.999"/>\n'
-        '  <Type name="381" class="HW" element="H" mass="1.008"/>\n'
-        " </AtomTypes>\n"
-        " <Residues>\n"
-        '  <Residue name="HOH">\n'
-        '   <Atom name="O" type="380"/>\n'
-        '   <Atom name="H1" type="381"/>\n'
-        '   <Atom name="H2" type="381"/>\n'
-        '   <Bond from="0" to="1"/>\n'
-        '   <Bond from="0" to="2"/>\n'
-        "  </Residue>\n"
-        " </Residues>\n"
-        f" <ADMPDispForce{scales('m')}>\n{disp}"
-        " </ADMPDispForce>\n"
-        f' <ADMPPmeForce lmax="2" pmax="10"{scales("mpd")}>\n{pme}'
-        " </ADMPPmeForce>\n"
-        "</ForceField>\n")
-
-
-def water_pdb(positions, box):
-    """A PDB (a str) of waters laid out (O, H1, H2) in an orthorhombic box:
-    CRYST1, one HOH residue per molecule (at most 9,999), END."""
-    names = ("O", "H1", "H2")
-    require(len(positions) <= 3 * 9999, "too many waters for a PDB")
-    lines = ["CRYST1%9.3f%9.3f%9.3f%7.2f%7.2f%7.2f P 1           1"
-             % (box[0][0], box[1][1], box[2][2], 90.0, 90.0, 90.0)]
-    for k, p in enumerate(positions):
-        lines.append(
-            "HETATM%5d %-4s HOH A%4d    %8.3f%8.3f%8.3f  1.00  0.00"
-            "           %s" % (k + 1, names[k % 3], k // 3 + 1, p[0], p[1],
-                               p[2], names[k % 3][0]))
-    return "\n".join(lines + ["END"]) + "\n"
-
-
-def write_water_inputs(directory, positions, box):
-    """Write the MPID water XML and a PDB of ``positions`` in ``box`` into
-    ``directory``; returns (xml path, pdb path)."""
-    directory = pathlib.Path(directory)
-    xml, pdb = directory / "mpid_water.xml", directory / "water.pdb"
-    xml.write_text(water_ff_xml())
-    pdb.write_text(water_pdb(np.asarray(positions), np.asarray(box)))
-    return str(xml), str(pdb)
 
 
 # ---------------------------------------------------------------------------
@@ -1002,15 +906,16 @@ def frames_calls(inputs):
             lambda a=a: F8.launch_frames_fwd(*a, LMAX),
             lambda a=a: F8.global_multipoles_torch(*a, LMAX),
             None,
-            bound(nbytes(pos, q, types, anchors) + nbytes(q),
-                  count_ops(host_fwd)))
+            bound_s(nbytes(pos, q, types, anchors) + nbytes(q),
+                    count_ops(host_fwd)))
         calls["frames_bwd" + suffix] = (
             lambda a=a, g=g: F8.launch_frames_bwd(*a, g, LMAX, want_box=False,
                                                   want_q=False),
             lambda out=out, xp=xp, g=g: torch.autograd.grad(
                 out, xp, g, retain_graph=True),
             None,
-            bound(nbytes(pos, q, types, anchors, g, pos), count_ops(host_bwd)))
+            bound_s(nbytes(pos, q, types, anchors, g, pos),
+                    count_ops(host_bwd)))
     return calls
 
 
@@ -1729,7 +1634,7 @@ def front_end_path(w):
     against the direct force objects (kernels, plain f32), its parameter
     gradients against plain f64, and its kernel launches. Returns what
     phase 4 times."""
-    import tempfile
+    from admp_tpu_torch.systems import write_water_inputs
 
     s, dev = w["sys"], w["positions"].device
     with tempfile.TemporaryDirectory() as tmp:
@@ -1982,7 +1887,7 @@ def time_front_end(front, w, card):
             "(median of 3 x 3): " + "; ".join(out))
     for (order, n_ch), (m_u0, q, g_mesh) in front["stencils"].items():
         grid = tuple(g_mesh.shape[1:])
-        for name, (kern, plain, lib, (b_ms, b_by)) in spread_calls(
+        for name, (kern, plain, lib, (b_s, b_by)) in spread_calls(
                 m_u0, q, g_mesh, order).items():
             ms, dev_ms = cuda_time_ms(kern)
             p_ms, p_dev = cuda_time_ms(plain)
@@ -1990,7 +1895,7 @@ def time_front_end(front, w, card):
             log(f"phase 4 [{card}]: front end {grid} ({order}, {n_ch}) "
                 f"{name}: {ms:.4f} ms/call ({dev_ms:.4f} ms device), plain "
                 f"{p_ms:.4f} ({p_dev:.4f} device), one PyTorch call "
-                f"{l_ms:.4f} ({l_dev:.4f} device), bound {b_ms:.4f} ms "
+                f"{l_ms:.4f} ({l_dev:.4f} device), bound {b_s * 1e3:.4f} ms "
                 f"({b_by})")
 
 
@@ -3136,14 +3041,14 @@ def check_slab_kernels(m_u0, q, grid, n_dev, label, card=None):
     require(torch.equal(out_k, out_p), f"K6 on the {label} slab")
     if card is None:
         return
-    for name, (kernel, plain, library, (b_ms, b_by)) in spread_calls(
+    for name, (kernel, plain, library, (b_s, b_by)) in spread_calls(
             m_s, q_s, g, 6).items():
         (ms, dev_ms), (p_ms, p_dev), (l_ms, l_dev) = (
             cuda_time_ms(fn) for fn in (kernel, plain, library))
         log(f"phase 4 [{card}]: {label} halo slab {sgrid} {name} (K4/K6 at "
             f"(6, 1)): kernel {ms:.4f} ms/call ({dev_ms:.4f} ms device), "
             f"plain {p_ms:.4f} ({p_dev:.4f}), one PyTorch call {l_ms:.4f} "
-            f"({l_dev:.4f}), bound {b_ms:.4f} ms ({b_by})")
+            f"({l_dev:.4f}), bound {b_s * 1e3:.4f} ms ({b_by})")
 
 
 def sharded_inputs(w, n_dev):
@@ -3844,6 +3749,7 @@ def scripts_path(record, card):
 
     from admp_tpu_torch import water_system
     from admp_tpu_torch.examples import fit_params, run_npt, run_water
+    from admp_tpu_torch.systems import write_water_inputs
     from admp_tpu_torch.examples import fluctuating_multipoles as fluct
 
     walls, launches = {}, {}
@@ -4084,50 +3990,8 @@ def profile_steps(run, name, n_steps=3):
         for a in top]
 
 
-# aten ops that only move, view or make data: they do no arithmetic
-_MOVES = frozenset("""
-_to_copy _unsafe_view alias arange as_strided cat clone contiguous copy_
-detach empty empty_like expand expand_as fill_ full full_like index
-index_select lift_fresh lift_fresh_copy narrow new_empty new_full new_ones
-new_zeros ones ones_like permute reshape scalar_tensor select
-select_backward slice slice_backward split split_with_sizes squeeze stack t
-transpose unbind unsqueeze view zero_ zeros zeros_like
-""".split())
-
-
-def count_ops(fn):
-    """The arithmetic operations of fn(), counted on the host: for each aten
-    op that is not a data movement (_MOVES), the size of its largest operand
-    or result. The plain versions repeat their kernels' arithmetic, so this
-    counts a kernel's work on the same inputs."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_flatten
-
-    class Count(TorchDispatchMode):
-        ops = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func.overloadpacket.__name__ not in _MOVES:
-                leaves = tree_flatten((args, kwargs, out))[0]
-                Count.ops += max((t.numel() for t in leaves
-                                  if isinstance(t, torch.Tensor)), default=0)
-            return out
-
-    with Count():
-        fn()
-    return Count.ops
-
-
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes, n_ops):
-    """(ms, 'bytes' or 'operations'): the least time the card could take to
-    move n_bytes through HBM and do n_ops float32 operations."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def spread_calls(m_u0, q, g_mesh, order):
@@ -4150,11 +4014,11 @@ def spread_calls(m_u0, q, g_mesh, order):
         "spread": (lambda: S.launch_spread(m_u0, q, grid, order),
                    lambda: S.spread_torch(m_u0, q, grid, order),
                    lambda: torch.index_add(zeros, 0, s_idx, s_val),
-                   bound(nbytes(m_u0, q) + 4 * n_ch * kcube, q.numel())),
+                   bound_s(nbytes(m_u0, q) + 4 * n_ch * kcube, q.numel())),
         "gather": (lambda: S.launch_gather(m_u0, g_mesh, grid, order),
                    lambda: S.gather_torch(m_u0, g_mesh, grid, order),
                    lambda: torch.take(g_mesh, g_idx),
-                   bound(nbytes(m_u0, q) + touched, 0)),
+                   bound_s(nbytes(m_u0, q) + touched, 0)),
     }
 
 
@@ -4200,7 +4064,7 @@ def time_large_kernels(w, card):
                 lib_ms, lib_dev_ms = cuda_time_ms(c[2])
                 extra = (f", one PyTorch call {lib_ms:.4f} ms/call "
                          f"({lib_dev_ms:.4f} ms device), bound "
-                         f"{c[3][0]:.4f} ms ({c[3][1]})")
+                         f"{c[3][0] * 1e3:.4f} ms ({c[3][1]})")
             log(f"phase 4 [{card}]: 98k {grid} {name}: {ms:.4f} ms/call "
                 f"({dev_ms:.4f} ms device){extra}")
 
@@ -4558,19 +4422,19 @@ def time_kernels(record):
                                           table.index_select(0, j), scl,
                                           scal, lmax, "pol"),
             None,
-            bound(inputs + nbytes(ct), count_ops(
+            bound_s(inputs + nbytes(ct), count_ops(
                 lambda: P.pair_energies_torch(*h_tab, lmax, "pol")))),
         "pair_bwd": (
             lambda: P.launch_pair_bwd(table, i, j, scl, scal, ct, lmax,
                                       "pol"),
             lambda: torch.autograd.grad(e, leaves, retain_graph=True),
             None,
-            bound(inputs + nbytes(ct, scl) + d_table, count_ops(host_bwd))),
+            bound_s(inputs + nbytes(ct, scl) + d_table, count_ops(host_bwd))),
         "pair_hvp": (
             lambda: P.launch_pair_hvp(*x, hct, *cs, hl, "pol"),
             lambda: P.pair_hvp_torch(*x, hct, *cs, hl, "pol"),
             None,
-            bound(2 * nbytes(*x, hct) + nbytes(*cs), count_ops(
+            bound_s(2 * nbytes(*x, hct) + nbytes(*cs), count_ops(
                 lambda: P.pair_hvp_torch(*hx, h_hct, *hcs, hl, "pol")))),
     }
     calls.update(third_calls(record.pop("_third_inputs")))
@@ -4582,12 +4446,12 @@ def time_kernels(record):
     m98, q98, g98 = record.pop("_tiled_inputs")
     calls.update(tiled_calls(m98, q98, g98, 6))
     calls.update(frames_calls(record.pop("_frames_inputs")))
-    for name, (kernel, plain, library, (b_ms, b_by)) in calls.items():
+    for name, (kernel, plain, library, (b_s, b_by)) in calls.items():
         r = record.setdefault(name, {})
         r["ms"], r["device_ms"] = cuda_time_ms(kernel)
         r["plain_ms"], r["plain_device_ms"] = cuda_time_ms(plain)
         r["library_ms"] = cuda_time_ms(library)[0] if library else None
-        r["bound_ms"], r["bound_by"] = b_ms, b_by
+        r["bound_ms"], r["bound_by"] = b_s * 1e3, b_by
     # K3b at the 'uu' shapes and K8 at 3,000 sites: logged, their record
     # rows are 'pol' and the 98k box
     for name in ("pair_third_uu", "frames_fwd_3000", "frames_bwd_3000"):
@@ -4618,7 +4482,7 @@ def third_calls(inputs):
             lambda a=args, k=kind, lm=lmax: P.launch_pair_third(*a, lm, k),
             lambda a=args, k=kind, lm=lmax: P.pair_third_torch(*a, lm, k),
             None,
-            bound(nbytes(*args) + outs, count_ops(
+            bound_s(nbytes(*args) + outs, count_ops(
                 lambda h=host, k=kind, lm=lmax: P.pair_third_torch(*h, lm,
                                                                    k))))
     return calls
@@ -4779,13 +4643,13 @@ def main():
                 f"({[round(v, 3) for v in t['kernel']]}), plain f32 "
                 f"{statistics.median(t['plain32'][1:]):.3f} ms/step "
                 f"({[round(v, 3) for v in t['plain32']]})")
-        for name, (kernel, plain, _, (b_ms, b_by)) in third_calls(
+        for name, (kernel, plain, _, (b_s, b_by)) in third_calls(
                 record.pop("_third_inputs")).items():
             ms_k, dev_k = cuda_time_ms(kernel)
             ms_p, dev_p = cuda_time_ms(plain)
             log(f"  [{card}] {name}: kernel {ms_k:.4f} ms/call ({dev_k:.4f} "
                 f"ms device), plain {ms_p:.4f} ms/call ({dev_p:.4f} ms "
-                f"device), bound {b_ms:.4f} ms ({b_by})")
+                f"device), bound {b_s * 1e3:.4f} ms ({b_by})")
         log("phase 3d: trainer ok")
         return 0
     if mode == "--frames":
@@ -4794,20 +4658,20 @@ def main():
         main_path(w, record)
         log("phase 3: main path ok")
         rows = []
-        for name, (kernel, plain, _, (b_ms, b_by)) in frames_calls(
+        for name, (kernel, plain, _, (b_s, b_by)) in frames_calls(
                 record.pop("_frames_inputs")).items():
             ms_k, dev_k = cuda_time_ms(kernel)
             ms_p, dev_p = cuda_time_ms(plain)
             log(f"  [{card}] {name}: kernel {ms_k:.4f} ms/call ({dev_k:.4f} "
                 f"ms device), plain {ms_p:.4f} ms/call ({dev_p:.4f} ms "
-                f"device), bound {b_ms:.4f} ms ({b_by})")
+                f"device), bound {b_s * 1e3:.4f} ms ({b_by})")
             if name in ("frames_fwd", "frames_bwd"):
                 r = record[name]
                 rows.append(dict(
                     name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=r["launches"],
                     max_abs_err=r["max_abs_err"], ms=ms_k, device_ms=dev_k,
-                    plain_ms=ms_p, plain_device_ms=dev_p, bound_ms=b_ms,
+                    plain_ms=ms_p, plain_device_ms=dev_p, bound_ms=b_s * 1e3,
                     bound_by=b_by, library_ms=None))
         log(card)
         print(json.dumps({"kernels": rows}))

@@ -25,7 +25,7 @@ from admp_tpu_torch import (
 )
 from admp_tpu_torch.convert import convert_params
 from admp_tpu_torch.io.pdb import read_pdb
-from chip_smoke import write_water_inputs
+from admp_tpu_torch.systems import write_water_inputs
 from torch_port_cases import assert_close
 
 RC = 4.0

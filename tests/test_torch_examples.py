@@ -9,7 +9,7 @@ printed digit, plus 1e-9 relative):
 
 - run_water --nmol 27 (81 atoms) plain, --polarizable (the SCF iteration
   count within 1) and --pdb/--xml (the MPID water XML and PDB that
-  chip_smoke.write_water_inputs writes): the PME, dispersion and
+  admp_tpu_torch.systems.write_water_inputs writes): the PME, dispersion and
   Tang-Toennies energies;
 - fluctuating_multipoles --n-side 4 (192 atoms): E and |F| rms, and its
   sharded branch on 2 gloo ranks (parallel/launch) against the script with
@@ -38,7 +38,7 @@ from admp_tpu_torch.examples import fluctuating_multipoles as t_fluct
 from admp_tpu_torch.examples import run_npt as t_npt
 from admp_tpu_torch.examples import run_water as t_water
 from admp_tpu_torch.parallel.launch import launch
-from chip_smoke import write_water_inputs
+from admp_tpu_torch.systems import write_water_inputs
 from torch_port_cases import rel_err
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

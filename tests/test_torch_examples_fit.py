@@ -1,6 +1,7 @@
 """The port's fit_params (admp_tpu_torch.examples.fit_params) against
 admp_tpu's examples/fit_params.py at float64 on the CPU, both with FF_XML
-set to the MPID water XML that chip_smoke.write_water_inputs writes.
+set to the MPID water XML that admp_tpu_torch.systems.write_water_inputs
+writes.
 
 admp_tpu's script runs unmodified in subprocesses (it sets JAX's platform
 and x64 when imported): its main() in one and multi_config(n_epochs=2) in
@@ -25,7 +26,7 @@ import numpy as np
 import pytest
 
 from admp_tpu_torch.examples import fit_params as t_fit
-from chip_smoke import write_water_inputs
+from admp_tpu_torch.systems import write_water_inputs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MULTI_EPOCHS = 2

@@ -3,9 +3,11 @@ nothing when it is imported: the sharded layer (parallel/, utils/comm.py),
 the entry points (entry.py), the user's scripts (examples/) and the
 subpackages' exports too. Every public function and class of admp_tpu
 (outside ops/pallas/) has a port of the same name, but for the seven that
-do not carry over, and every subpackage exports what admp_tpu's does."""
+do not carry over, and every subpackage exports what admp_tpu's does. The
+port's tests run on one intra-op thread."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -60,6 +62,22 @@ def test_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_tests_run_on_one_thread():
+    """The port's test support holds each worker, and each process a test
+    starts, to one intra-op thread."""
+    import torch
+    import torch_port_cases  # noqa: F401
+
+    assert torch.get_num_threads() == 1
+    assert os.environ["OMP_NUM_THREADS"] == "1"
+    assert os.environ["MKL_NUM_THREADS"] == "1"
+    out = subprocess.run(
+        [sys.executable, "-c", "import torch; print(torch.get_num_threads())"],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1"
 
 
 # public admp_tpu functions with no port of the same name (ROADMAP, "Not to

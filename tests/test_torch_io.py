@@ -15,8 +15,8 @@ from admp_tpu.io import topology as j_topo
 from admp_tpu_torch.io import ffxml as t_ffxml
 from admp_tpu_torch.io import pdb as t_pdb
 from admp_tpu_torch.io import topology as t_topo
-from admp_tpu_torch.systems import water_lattice
-from chip_smoke import water_ff_xml, water_pdb, write_water_inputs
+from admp_tpu_torch.systems import (water_ff_xml, water_lattice,
+                                    write_water_inputs, write_water_pdb)
 
 # the MPIDForce schema: <Multipole> tags, one with an octupole
 MPID_XML = """<ForceField>
@@ -79,12 +79,14 @@ def _read_both_pdb(path):
                                     (90.0, 90.0, 120.0)])
 def test_read_pdb_cryst1_and_conect(tmp_path, angles):
     positions, box = water_lattice(n_side=2, spacing=3.1, jitter=0.1, seed=2)
-    text = water_pdb(positions, box).splitlines()
-    text[0] = "CRYST1%9.3f%9.3f%9.3f%7.2f%7.2f%7.2f P 1           1" % (
+    path = tmp_path / "box.pdb"
+    write_water_pdb(path, positions, box)
+    text = path.read_text().splitlines()
+    k = next(n for n, line in enumerate(text) if line.startswith("CRYST1"))
+    text[k] = "CRYST1%9.3f%9.3f%9.3f%7.2f%7.2f%7.2f P 1           1" % (
         6.2, 6.5, 7.0, *angles)
     text.insert(-1, "CONECT    1    4")
     text.insert(-1, "CONECT    2    1")
-    path = tmp_path / "box.pdb"
     path.write_text("\n".join(text) + "\n")
     t = _read_both_pdb(path)
     assert t.conect_bonds() == [(0, 1), (0, 3)]
@@ -170,12 +172,19 @@ def test_assemble_system_with_conect(tmp_path):
     assert cov[0, 3] == 1 and cov[0, 4] == 2 and cov[1, 3] == 2
 
 
+def test_write_water_inputs_refuses_more_than_9999_waters(tmp_path):
+    """A PDB numbers residues in four columns."""
+    with pytest.raises(ValueError, match="9,999"):
+        write_water_inputs(tmp_path, np.zeros((3 * 10000, 3)), np.eye(3))
+    assert not list(tmp_path.iterdir())
+
+
 def test_load_mpid_system(tmp_path):
     positions, box = water_lattice(n_side=2, spacing=3.1, jitter=0.1, seed=5)
     xml = tmp_path / "mpid.xml"
     xml.write_text(MPID_XML % "0.0")
     pdb = tmp_path / "w.pdb"
-    pdb.write_text(water_pdb(positions, box))
+    write_water_pdb(pdb, positions, box)
     for depth in (4, 6):
         j = j_topo.load_mpid_system(str(pdb), str(xml), depth)
         t = t_topo.load_mpid_system(str(pdb), str(xml), depth)

@@ -1097,7 +1097,7 @@ def test_hamiltonian_potentials_kernels_match_plain(dev, tmp_path):
     and K4/K6 at (6, 1) for the polarizable one, K4/K6 at (6, 3) for
     dispersion)."""
     from admp_tpu_torch import Hamiltonian
-    from chip_smoke import write_water_inputs
+    from admp_tpu_torch.systems import write_water_inputs
 
     s, pos, box, _, _, pairs = _system(dev)
     xml, pdb = write_water_inputs(tmp_path, s["positions"], s["box"])

@@ -348,18 +348,7 @@ def _field_and_matvec(w, force):
     return torch.autograd.grad(e, u0)[0], torch.autograd.grad(e_uu, v)[0]
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the 3,000-atom passes run ~2 s alone, but their
-    multithreaded ops slow ~100x beside the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_scf_field_matvec_and_step_on_3000_atoms(monkeypatch, water3k,
-                                                  one_thread):
+def test_scf_field_matvec_and_step_on_3000_atoms(monkeypatch, water3k):
     _indexed_route(monkeypatch)
     w = water3k
     sc = w["scales"]

@@ -186,8 +186,7 @@ def test_hamiltonian_polarizable_potential_force_matching(tmp_path):
     differentiates, and with both solves converged it is the derivative of
     the loss along a seeded direction (central difference, 1e-7)."""
     from admp_tpu_torch import Hamiltonian
-    from admp_tpu_torch.systems import water_system
-    from chip_smoke import write_water_inputs
+    from admp_tpu_torch.systems import water_system, write_water_inputs
 
     s = water_system(n_side=2, spacing=3.104, jitter=0.12, seed=0)
     xml, pdb = write_water_inputs(tmp_path, s["positions"], s["box"])

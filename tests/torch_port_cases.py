@@ -4,10 +4,19 @@ Every input is made with numpy from a fixed seed and handed to both packages
 (JAX arrays and torch tensors); results come back as numpy for comparison.
 """
 
+import os
+
 import numpy as np
 import torch
 
 from admp_tpu.systems import water_system
+
+# One intra-op thread in each test worker and, through the environment, in
+# every process the tests start: 6 xdist workers on 8 cores, each with a
+# thread per core, ran a 19 s case in 91 s.
+os.environ["OMP_NUM_THREADS"] = "1"
+os.environ["MKL_NUM_THREADS"] = "1"
+torch.set_num_threads(1)
 
 
 def rel_err(a, b):

@@ -68,6 +68,7 @@ from admp_tpu_torch.settings import EngineConfig, SCFConfig
 from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.accmath import compensated_sum, masked_compensated_sum
 from admp_tpu_torch.utils.constants import DIELECTRIC
+from admp_tpu_torch.utils.devconst import device_values
 from admp_tpu_torch.utils.linalg3 import inv3x3
 
 
@@ -97,8 +98,8 @@ def _pair_indices(pairs, n):
 
 def _pair_scalars(kappa, box):
     """The pair kernel's 19 scalars: kappa, box (9), inv(box) (9)."""
-    k = profiling.host_sync("pairs.kappa", torch.as_tensor, kappa,
-                            dtype=box.dtype, device=box.device).reshape(1)
+    k = device_values(kappa.reshape(1) if torch.is_tensor(kappa) else
+                      (kappa,), box.dtype, box.device)
     return torch.cat([k, box.reshape(9), inv3x3(box).reshape(9)])
 
 

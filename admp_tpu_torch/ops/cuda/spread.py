@@ -60,7 +60,7 @@ import torch
 from admp_tpu_torch.ops.cuda import SPREAD_METHODS, build, use_kernel
 from admp_tpu_torch.ops.cuda.entries import entry as _entry
 from admp_tpu_torch.ops.cuda.entries import raw_stream as _raw_stream
-from admp_tpu_torch.utils import profiling
+from admp_tpu_torch.utils.devconst import device_values
 
 ORDERS = (4, 6)
 CHANNELS = (1, 3)
@@ -285,11 +285,10 @@ class TileBins:
 
 def tile_bins(m_u0, grid_shape, tile=TILE, order: int = 6) -> TileBins:
     """Bin atoms by the tile of their base index, wrapped as admp_tpu wraps
-    it (spread.py:733-742); no capacity and no read-back (the grid and tile
-    sizes are copied from the host: two syncs)."""
+    it (spread.py:733-742); no capacity and no read-back."""
     dev = m_u0.device
-    k, t = profiling.host_sync("spread.tiles", lambda: (
-        torch.tensor(grid_shape, device=dev), torch.tensor(tile, device=dev)))
+    k = device_values(grid_shape, torch.int64, dev)
+    t = device_values(tile, torch.int64, dev)
     base = torch.remainder(m_u0.long() - order // 2, k)
     nt = tuple(-(-kk // tt) for kk, tt in zip(grid_shape, tile))
     tb = torch.div(base, t, rounding_mode="floor")
@@ -311,7 +310,7 @@ def _tile_windows(bins: TileBins, grid_shape):
     dev = bins.base.device
     ext = [t + order - 1 for t in tile]
     base = bins.base.long()
-    t = torch.tensor(tile, device=dev)
+    t = device_values(tile, torch.int64, dev)
     tb = torch.div(base, t, rounding_mode="floor")
     tid = (tb[:, 0] * nt[1] + tb[:, 1]) * nt[2] + tb[:, 2]
     tiles, slot = torch.unique_consecutive(tid, return_inverse=True)

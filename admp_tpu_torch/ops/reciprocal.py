@@ -36,6 +36,7 @@ from admp_tpu_torch.ops.cuda import spread as spread_ops
 from admp_tpu_torch.ops.cuda import SPREAD_METHODS, use_kernel
 from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.accmath import compensated_sum
+from admp_tpu_torch.utils.devconst import device_constant, device_values
 from admp_tpu_torch.utils.linalg3 import det3x3, inv3x3
 
 RT3 = 1.7320508075688772
@@ -49,13 +50,21 @@ _SEP_TERMS = [
 ]
 
 
+def _term_index(n_terms: int, device):
+    """(3, n_terms) int64: each separable term's derivative order along x,
+    y and z (``_SEP_TERMS``), kept on ``device`` (utils/devconst)."""
+    key = ("sep_terms", n_terms)
+    return device_constant(key, lambda: [[t[c] for t in _SEP_TERMS[:n_terms]]
+                                         for c in range(3)],
+                           torch.int64, device)
+
+
 def mesh_coordinates(positions, box, grid_shape, order: int = bsplines.ORDER):
     """Map positions to mesh space.
 
     Returns (m_u0 (N, 3) int32 base mesh index, u0 (N, 3) fractional offsets
     in [order/2, order/2 + 1), dug_dx (3, 3) Jacobian N_j invbox[c, j])."""
-    n = profiling.host_sync("recip.grid_shape", torch.as_tensor, grid_shape,
-                            dtype=positions.dtype, device=positions.device)
+    n = device_values(grid_shape, positions.dtype, positions.device)
     box_inv = inv3x3(box)
     r_in_m = (positions @ box_inv) * n
     m_f = torch.ceil(r_in_m).detach()
@@ -105,10 +114,8 @@ def spread_points_separable(u0, alpha, lmax: int, order: int = 6):
         tabs.append(bsplines.spline_derivs2(u0, order))
     tab = torch.stack(tabs, dim=1)  # (N, lmax+1, order, 3)
     n_terms = alpha.shape[-1]
-    terms = _SEP_TERMS[:n_terms]
-    # (N, T, order) each; a list index is copied to the device, a sync
-    x, y, z = profiling.host_sync("recip.terms", lambda: [
-        tab[:, [t[c] for t in terms], :, c] for c in range(3)])
+    index = _term_index(n_terms, tab.device)
+    x, y, z = (tab[:, index[c], :, c] for c in range(3))  # (N, T, order)
     ax = alpha[:, :, None] * x
     xy = (ax[:, :, :, None] * y[:, :, None, :]).reshape(n, n_terms,
                                                         order * order)
@@ -254,21 +261,18 @@ def spectrum_sq(mesh, force_split: bool = False):
     return s_k.real * s_k.real + s_k.imag * s_k.imag
 
 
-_DFT_MATS = {}
-
-
 def _dft_mats(k: int, n_out: int, like):
     """Real cos/sin DFT matrices C[m, c] = cos(2 pi m c / k), S = sin, in
-    ``like``'s dtype on its device; put there once (a host-to-device copy in
-    the step would wait for the queued work)."""
-    key = (k, n_out, like.dtype, str(like.device))
-    if key not in _DFT_MATS:
+    ``like``'s dtype, kept on its device (utils/devconst)."""
+
+    def make(f):
         m = np.arange(n_out)[:, None]
         c = np.arange(k)[None, :]
-        ang = 2.0 * np.pi * (m * c % k) / k
-        _DFT_MATS[key] = (like.new_tensor(np.cos(ang)),
-                          like.new_tensor(np.sin(ang)))
-    return _DFT_MATS[key]
+        return f(2.0 * np.pi * (m * c % k) / k)
+
+    return tuple(device_constant(("dft." + f.__name__, k, n_out),
+                                 lambda f=f: make(f), like.dtype, like.device)
+                 for f in (np.cos, np.sin))
 
 
 def spectrum_sq_dft(mesh):
@@ -318,14 +322,17 @@ def k_space_grids(box, grid_shape, dtype, order: int = 6):
 
 def _hermitian_weights(k3: int, dtype, device):
     """Multiplicities of rfft modes in the full spectrum: the k3 = 0 plane
-    (and the Nyquist plane for even K3) once, every other mode twice. Each
-    scalar written into a device tensor is a copy from the host, a sync."""
-    k3h = k3 // 2 + 1
-    w = torch.full((k3h,), 2.0, dtype=dtype, device=device)
-    w[0] = 1.0
-    if k3 % 2 == 0:
-        w[k3h - 1] = 1.0
-    return w
+    (and the Nyquist plane for even K3) once, every other mode twice; kept
+    on ``device`` (utils/devconst), read only."""
+
+    def make():
+        w = np.full(k3 // 2 + 1, 2.0)
+        w[0] = 1.0
+        if k3 % 2 == 0:
+            w[-1] = 1.0
+        return w
+
+    return device_constant(("hermitian", int(k3)), make, dtype, device)
 
 
 def influence_weights(box, grid_shape, kappa, ck_fn, order: int = 6,
@@ -341,8 +348,7 @@ def influence_weights(box, grid_shape, kappa, ck_fn, order: int = 6,
         box = box.to(dtype)
     ksq, theta_sq = k_space_grids(box, grid_shape, box.dtype, order)
     volume = det3x3(box)
-    w3 = profiling.host_sync("recip.hermitian", _hermitian_weights,
-                             grid_shape[2], box.dtype, box.device)
+    w3 = _hermitian_weights(grid_shape[2], box.dtype, box.device)
     nonzero = ksq > 0.0
     ksq_safe = torch.where(nonzero, ksq, torch.ones_like(ksq))
     gamma = (ck_fn.at_zero(kappa, volume) * torch.ones_like(ksq)

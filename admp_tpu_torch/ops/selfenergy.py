@@ -5,9 +5,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from admp_tpu_torch.utils import profiling
 from admp_tpu_torch.utils.accmath import compensated_sum
 from admp_tpu_torch.utils.constants import DIELECTRIC
+from admp_tpu_torch.utils.devconst import device_constant
+
+
+def _self_factor(kappa, n_harm: int, dtype, device):
+    """kappa/sqrt(pi) (2 kappa^2)^l / (2l+1)!! for the first ``n_harm``
+    harmonics, kept on ``device`` (utils/devconst) for a number kappa; from
+    a tensor kappa, built anew at each call."""
+
+    def make():
+        l_list = np.array([0] + [1] * 3 + [2] * 5)[:n_harm]
+        l_fac2 = np.array([1] + [3] * 3 + [15] * 5)[:n_harm]
+        return kappa / np.sqrt(np.pi) * (2.0 * kappa**2) ** l_list / l_fac2
+
+    if torch.is_tensor(kappa):
+        return torch.as_tensor(make(), dtype=dtype, device=device)
+    key = ("self_factor", type(kappa), float(kappa), n_harm)
+    return device_constant(key, make, dtype, device)
 
 
 def pme_self_energy(q_harm, kappa, lmax: int = 2):
@@ -15,11 +31,7 @@ def pme_self_energy(q_harm, kappa, lmax: int = 2):
     DIELECTRIC, compensated in float32 (it cancels ~1e6-magnitude real-space
     exclusion corrections)."""
     n_harm = (lmax + 1) ** 2
-    l_list = np.array([0] + [1] * 3 + [2] * 5)[:n_harm]
-    l_fac2 = np.array([1] + [3] * 3 + [15] * 5)[:n_harm]
-    factor = kappa / np.sqrt(np.pi) * (2.0 * kappa**2) ** l_list / l_fac2
-    factor = profiling.host_sync("self.factor", torch.as_tensor, factor,
-                                 dtype=q_harm.dtype, device=q_harm.device)
+    factor = _self_factor(kappa, n_harm, q_harm.dtype, q_harm.device)
     terms = factor[None, :] * q_harm[:, :n_harm] ** 2
     total = (compensated_sum(terms) if terms.dtype == torch.float32
              else terms.sum())

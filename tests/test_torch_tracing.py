@@ -6,11 +6,13 @@ leaf ranges top-level with the backward's autograd nodes inside the
 ``.bwd`` ranges, the registry's stamps inside the profiler's events), the
 exact adjoint's third derivative traced, the list refresh and the export.
 On the card: the kernels' step traced and untraced, no synchronizing call
-outside a counted ``host.sync`` site, the frames on K8 still recorded as
+in a fixed step and none but the SCF's residual reads in a polarizable
+one, the frames on K8 still recorded as
 ``frames`` and ``frames.bwd``, with its two launches a step counted, and
 every real-space pass on the indexed K1/K2 (``pairs.indexed``), none on the
 gathered fallback (``pairs.gathered``)."""
 
+import contextlib
 import dataclasses
 import json
 import warnings
@@ -58,7 +60,8 @@ class _Water:
     """A small MPID water box: PME (fixed or polarizable), Tang-Toennies and
     the bonded terms summed as an MD user's force function does."""
 
-    def __init__(self, lpol, device="cpu", dtype=torch.float64, n_side=3):
+    def __init__(self, lpol, device="cpu", dtype=torch.float64, n_side=3,
+                 spread_method="auto"):
         s = water_arrays(n_side=n_side, seed=4)
         self.n = n = s["positions"].shape[0]
         t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,  # noqa
@@ -67,7 +70,9 @@ class _Water:
         self.positions, self.box = t(s["positions"]), t(s["box"])
         self.masses = t(np.tile([15.999, 1.008, 1.008], n // 3))
         self.lpol = lpol
-        cfg = EngineConfig(scf=POL_SCF) if lpol else EngineConfig()
+        cfg = EngineConfig(spread_method=spread_method)
+        if lpol:
+            cfg = dataclasses.replace(cfg, scf=POL_SCF)
         self.pme = ADMPPmeForce(s["box"], s["axis_types"], s["axis_indices"],
                                 s["covalent_map"], 4.0, 1e-4, 2, lpol=lpol,
                                 config=cfg, device=device, dtype=dtype)
@@ -193,6 +198,41 @@ def test_one_step_records_every_span_with_its_parent(runs):
         assert 0 <= s["self_ms"] <= s["total_ms"], (name, s)
     assert spans["md.step"]["self_ms"] < spans["md.step"]["total_ms"]
     assert profiling._OPEN == []
+
+
+def test_the_step_syncs_only_at_the_scf_residuals(runs):
+    """The force call's constants stay on the device (utils/devconst): the
+    fixed step counts no host sync, the polarizable step only its SCF's
+    residual reads, one a PCG iteration and one more."""
+    kind, _, (_, _, _, snap) = runs
+    syncs = {k: v for k, v in snap["counters"].items()
+             if k.startswith("host.syncs.")}
+    if kind == "fixed":
+        assert syncs == {}
+    else:
+        assert syncs == {"host.syncs.scf.residual":
+                         snap["spans"]["scf.iter"]["count"] + 1}
+
+
+def test_the_tiled_spread_counts_no_sync():
+    """``spread_route(..., 'cuda2d')`` on CPU tensors runs K5/K7's plain
+    versions through ``tile_bins``, forward and backward, traced: no
+    ``host.syncs.*`` counter."""
+    from admp_tpu_torch.ops.cuda import spread as S
+
+    g = torch.Generator().manual_seed(3)
+    grid = (16, 12, 40)
+    m_u0 = torch.randint(-4, 44, (200, 3), generator=g, dtype=torch.int32)
+    q = torch.randn(200, 1, 216, generator=g,
+                    dtype=torch.float64).requires_grad_(True)
+    profiling.reset()
+    with _profile():
+        mesh = S.spread_route(m_u0, q, grid, 6, "cuda2d")
+        (g_q,) = torch.autograd.grad((mesh * mesh).sum(), q)
+    snap = profiling.snapshot()
+    profiling.reset()
+    assert mesh.shape == (1, *grid) and g_q.shape == q.shape
+    assert not [k for k in snap["counters"] if k.startswith("host.syncs.")]
 
 
 def test_leaf_ranges_are_top_level(runs):
@@ -387,8 +427,11 @@ def test_kernels_step_traced_and_without_stray_syncs():
     """On the card: the kernels' fixed-multipole step traced as untraced
     (within the spread of the card's atomic sums, whose order is not
     fixed), the spans' ranges on the host's timeline only, and under
-    torch.cuda.set_sync_debug_mode('warn') every synchronizing call of a
-    traced polarizable step inside a counted ``host.sync`` span."""
+    torch.cuda.set_sync_debug_mode('warn') no synchronizing call in an
+    untraced fixed-multipole step (on K4/K6 and on the tiled K5/K7), and
+    in a traced polarizable step none but the SCF's residual reads (one a
+    PCG iteration and one more), each inside its counted ``host.sync``
+    span."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -400,29 +443,42 @@ def test_kernels_step_traced_and_without_stray_syncs():
     assert any("pair_fwd_kernel" in e.name for e in events)
     assert not [e.name for e in events if e.name.startswith("admp::")
                 and e.device_type == torch.autograd.DeviceType.CUDA]
-    step, state, gen = _Water(True, device=dev, dtype=torch.float32,
-                              n_side=10).start()
-    profiling.reset()
-    stray = []
+    syncs, stray = [], []
 
     def record(message, *args, **kwargs):
-        if ("called a synchronizing" in str(message) and not any(
-                o.name == "host.sync" for o in profiling._OPEN)):
-            stray.append(str(message))
+        if "called a synchronizing" in str(message):
+            syncs.append(str(message))
+            if not any(o.name == "host.sync" for o in profiling._OPEN):
+                stray.append(str(message))
 
-    with warnings.catch_warnings(), _profile():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step(state, gen)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-    snap = profiling.snapshot()
-    assert snap["counters"]["host.syncs.scf.residual"] >= 1
-    assert stray == []
+    def run(step, state, gen, traced):
+        with warnings.catch_warnings(), (_profile() if traced
+                                         else contextlib.nullcontext()):
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(state, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+
+    # the tiled K5/K7 too (tile_bins), which the 98k meshes take
+    tiled = _Water(False, device=dev, dtype=torch.float32, n_side=10,
+                   spread_method="cuda2d")
+    for fixed in (w, tiled):
+        run(*fixed.start(), traced=False)
+    assert syncs == []
+    pol = _Water(True, device=dev, dtype=torch.float32, n_side=10)
+    step, state, gen = pol.start()
     profiling.reset()
+    run(step, state, gen, traced=True)
+    snap = profiling.snapshot()
+    profiling.reset()
+    assert {k: v for k, v in snap["counters"].items()
+            if k.startswith("host.syncs.")} == {
+                "host.syncs.scf.residual": pol.pme.n_cycle + 1}
+    assert syncs and stray == []
 
 
 @pytest.mark.cuda
